@@ -22,16 +22,16 @@ from v2v_tpu_torch.training.raft import raft_flow, random_teacher
 T = torch.from_numpy
 
 
-def jax_lpips_vgg():
-    """v2v_tpu's LPIPS("vgg") with its random trunk, initialized under jit:
+def jax_lpips(net="vgg"):
+    """v2v_tpu's LPIPS(net) with its random trunk, initialized under jit:
     the constructor's key and parameters in a third of its eager time."""
     lp = JLPIPS.__new__(JLPIPS)
-    lp.net = "vgg"
-    lp.module = LPIPSModule(net="vgg")
+    lp.net = net
+    lp.module = LPIPSModule(net=net)
     d = jnp.zeros((1, 64, 64, 3))
     params = jax.tree.map(np.asarray, jax.jit(lp.module.init)(
         jax.random.PRNGKey(7), d, d))
-    params["params"].update(_load_lin_weights("vgg"))
+    params["params"].update(_load_lin_weights(net))
     lp.params = jax.tree.map(jnp.asarray, params)
     lp._jitted = jax.jit(lp._dist, static_argnums=(2, 3))
     return lp
@@ -94,7 +94,7 @@ def test_lpips_vgg_matches_jax_on_bridged_trunk(size):
     into the port: distances agree to 1e-4 relative (float32 conv sums
     in different orders across 13 layers). 40 px exercises the <64 px
     bilinear upsample."""
-    jl = jax_lpips_vgg()
+    jl = jax_lpips()
     tl = LPIPS("vgg", device="cpu")
     tl.module.load_state_dict(jax_params_to_state_dict(
         jax.tree.map(np.asarray, jl.params)))

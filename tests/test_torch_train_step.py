@@ -29,7 +29,7 @@ from v2v_tpu_torch.training.steps import make_train_step
 
 import chip_smoke
 from subproc_env import cpu_env
-from test_torch_losses import jax_lpips_vgg, jax_raft_small
+from test_torch_losses import jax_lpips, jax_raft_small
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-4
@@ -56,7 +56,7 @@ def _module(compute_dtype=None):
 def _jax_parts():
     """JAX LPIPS (random trunk), RAFT-small teacher params and E2VID
     params, built once (flax's eager inits are slow on the CPU)."""
-    lp = jax_lpips_vgg()
+    lp = jax_lpips()
     teacher = jax_raft_small(ITERS)
     j = jiface_mod.ModelInterface.__new__(jiface_mod.ModelInterface)
     jiface_mod.ModelInterface.__init__(j, {"model": _module()["model"]})

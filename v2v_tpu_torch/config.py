@@ -14,8 +14,10 @@ from typing import Any, Dict
 # Reference target string -> v2v_tpu_torch implementation path.
 TARGET_ALIASES: Dict[str, str] = {
     "model.model.E2VIDRecurrent": "v2v_tpu_torch.models.model.E2VIDRecurrent",
+    "model.eitr.eitr.EITR": "v2v_tpu_torch.models.eitr.EITR",
     "torch.optim.Adam": "v2v_tpu_torch.training.optim.Adam",
     "torch.optim.lr_scheduler.StepLR": "v2v_tpu_torch.training.optim.StepLR",
+    "data.testh5.TestH5Dataset": "v2v_tpu_torch.data.h5.TestH5Dataset",
 }
 
 

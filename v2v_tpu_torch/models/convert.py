@@ -1,14 +1,17 @@
 """Flax parameter trees (as numpy) -> torch state_dicts.
 
 The inverse of v2v_tpu/models/convert.py::torch_state_dict_to_flax for
-the modules this package ports (E2VID, the RAFT teacher, the LPIPS
-trunk): carries weights from the JAX reference into the port, so parity
-tests run both on the same numbers. Rules:
+the modules this package ports (E2VID, ETNet, the RAFT teacher, the
+LPIPS trunks): carries weights from the JAX reference into the port, so
+parity tests run both on the same numbers. Rules:
 
   * kernel (kH,kW,I,O) -> weight (O,I,kH,kW); kernel (I,O) -> weight (O,I)
+  * packed attention in_proj_kernel (d,3d) -> in_proj_weight (3d,d)
   * scale -> weight; other leaves keep their name
   * flax child `encoders_0` of a torch ModuleList -> `encoders.0`
   * the decoder stack's `decoders/decoders_0` -> `decoders.0`
+  * ETNet's stacked streams `tri_encoder`/`tri_decoder` (leading axis 3)
+    -> `trans_encoder{i}.encoder` / `trans_decoder{i}.decoder`
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 # `{name}_{i}` (the subset of the reference converter's list that the
 # ported modules use)
 _MODULELISTS = ("encoders", "resblocks", "layer1", "layer2", "layer3",
-                "downsample")
+                "downsample", "DownsampleConv", "UpsampleConv", "layers")
 _DECODER_STACKS = ("decoders",)
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 
@@ -65,16 +68,38 @@ def _torch_module_path(path: Tuple[str, ...]) -> List[str]:
     return out
 
 
+def _unstack_eitr_streams(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of v2v_tpu/models/convert.py::_stack_eitr_streams: the
+    JAX EITR batches its three streams on a leading axis, the reference
+    (and this port) keeps them as separate modules with one more level."""
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    out = dict(tree)
+    for tri, base, level in (("tri_encoder", "trans_encoder", "encoder"),
+                             ("tri_decoder", "trans_decoder", "decoder")):
+        if tri in out:
+            stacked = out.pop(tri)
+            for i in range(3):
+                out[f"{base}{i}"] = {level: take(stacked, i)}
+    return out
+
+
 def jax_params_to_state_dict(flax_params: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
     """{'params': tree} (or the bare tree) of numpy arrays -> state_dict."""
-    tree = flax_params.get("params", flax_params)
+    tree = _unstack_eitr_streams(flax_params.get("params", flax_params))
     sd: Dict[str, torch.Tensor] = {}
     for path, val in _leaves(tree):
         arr = np.asarray(val, dtype=np.float32)
         leaf = path[-1]
         mod = _torch_module_path(path[:-1])
-        if leaf == "kernel":
+        if leaf == "in_proj_kernel":
+            leaf = "in_proj_weight"
+            arr = arr.T
+        elif leaf == "kernel":
             leaf = "weight"
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         elif leaf == "scale":

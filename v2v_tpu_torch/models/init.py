@@ -18,12 +18,26 @@ def default_generator(device: torch.device, seed: int = 0
 
 
 @torch.no_grad()
-def init_conv_params_(module: nn.Module, generator: torch.Generator,
-                      scheme: str = "uniform") -> nn.Module:
+def init_params_(module: nn.Module, generator: torch.Generator,
+                 scheme: str = "uniform") -> nn.Module:
     """Refill every Conv2d. 'uniform': torch's default, weight and bias
     ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)). 'he': weight ~ N(0, 2/fan_in),
-    bias 0."""
+    bias 0. Linear layers get torch's default uniform, LayerNorms ones
+    and zeros, and a module with an `init_params_(generator)` method
+    fills its own parameters."""
     for m in module.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            continue
+        if hasattr(m, "init_params_"):
+            m.init_params_(generator)
+            continue
+        if isinstance(m, nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            m.bias.uniform_(-bound, bound, generator=generator)
+            continue
         if not isinstance(m, nn.Conv2d):
             continue
         fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
@@ -45,11 +59,11 @@ def materialize(factory: Callable[[], nn.Module], device: torch.device,
                 generator: Optional[torch.Generator] = None,
                 scheme: str = "uniform") -> nn.Module:
     """Build `factory()` on the meta device, allocate it on `device` and
-    sample its conv parameters from `generator` (default: seed 0 on
+    sample its parameters from `generator` (default: seed 0 on
     `device`)."""
     with torch.device("meta"):
         module = factory()
     module = module.to_empty(device=device)
     if generator is None:
         generator = default_generator(device)
-    return init_conv_params_(module, generator, scheme)
+    return init_params_(module, generator, scheme)

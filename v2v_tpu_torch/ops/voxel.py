@@ -9,12 +9,14 @@ gaussian noise per frame plus persistent hot-pixel noise.
 The fused CUDA simulator (K1) and its plain twin with the same Philox
 bits live in ops/voxel_cuda.py; this module holds the parameter
 sampling and the generator-driven path that `put_noise_external` keeps
-(the kernel implements potential noise only).
+(the kernel implements potential noise only), and the host voxelizer of
+the h5 test path.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -162,3 +164,42 @@ def simulate_sequence(frames: torch.Tensor, generator: torch.Generator,
     voxels = counts.reshape((n - 1) // fpi, num_bins, frames_per_bin,
                             h, w).sum(dim=2)
     return voxels, fixed_params
+
+
+# ---------------------------------------------------------------------------
+# events -> voxel on the host (the h5 test path)
+# ---------------------------------------------------------------------------
+
+def events_to_voxel_np(ts: np.ndarray, xs: np.ndarray, ys: np.ndarray,
+                       ps: np.ndarray, *, num_bins: int, height: int,
+                       width: int, interpolate_bins: bool = False
+                       ) -> np.ndarray:
+    """The reference h5 voxelizer (data/testh5.py:60-90), the same numpy
+    operations as v2v_tpu/ops/voxel.py::events_to_voxel_np, so the voxels
+    are the same bits. Polarities in {0, 1}, timestamps in seconds.
+    Returns (num_bins, H, W) float64."""
+    voxel = np.zeros((num_bins, height, width))
+    if ts.shape[0] == 0:
+        return voxel
+    pol = ps.astype(np.int8) * 2 - 1
+    t_us = relative_us(ts)
+    if not interpolate_bins:
+        t_per_bin = (t_us[-1] + 0.001) / num_bins
+        bin_idx = np.floor(t_us / t_per_bin).astype(np.uint8)
+        np.add.at(voxel, (bin_idx, ys, xs), pol)
+    else:
+        dt = t_us[-1] - t_us[0]
+        t_norm = (t_us - t_us[0]) / (dt + 0.0001) * (num_bins - 1)
+        for bi in range(num_bins):
+            weights = np.maximum(0, 1.0 - np.abs(t_norm - bi))
+            np.add.at(voxel, (bi, ys, xs), weights * pol)
+    return voxel
+
+
+def relative_us(ts: np.ndarray) -> np.ndarray:
+    """float64 second timestamps -> int64 microseconds since the first
+    event (data/testh5.py:68), on the host: float32 seconds would lose
+    ~10 us."""
+    if ts.shape[0] == 0:
+        return ts.astype(np.int64)
+    return ((ts - ts[0]) * 1e6).astype(np.int64)

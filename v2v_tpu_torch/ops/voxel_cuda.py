@@ -5,8 +5,7 @@ K1 (`simulate_batch`) replaces v2v_tpu/ops/voxel_pallas.py::
 simulate_batch_pallas; K2 (`sample_gaussian`) replaces ::
 sample_gaussian_pallas. The sources are v2v_tpu_torch/csrc/esim.cu and
 philox.cuh (design, bound and rounding notes there). They are built at
-first use with nvcc for sm_90a into build/v2v_tpu_torch/ (override with
-$V2V_TORCH_BUILD_DIR) and loaded with ctypes.
+first use (ops/_build.py) and loaded with ctypes.
 
 A wrapper given CUDA tensors launches its kernel (and adds one to its
 `launches` count) or raises; it takes the plain version only for CPU
@@ -17,23 +16,12 @@ noise included.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
 from .. import resolve_device
+from ._build import CudaLibrary, check as _check, stream as _stream
 from .voxel import SimParams, _quantize_events, log_intensity
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_HEADERS = ("philox.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # Philox stream ids (csrc/philox.cuh)
 STREAM_INIT, STREAM_HOT_MASK, STREAM_HOT_VAL, STREAM_NOISE = 0, 1, 2, 3
@@ -47,72 +35,19 @@ _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 # build and load
 # ---------------------------------------------------------------------------
 
-def build_dir() -> Path:
-    env = os.environ.get("V2V_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[2] / "build" / "v2v_tpu_torch"
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.v2v_simulate_batch.argtypes = [p, i, p, p, p, p, p, p, p, p,
+                                       i, i, i, i, i, p]
+    lib.v2v_simulate_batch.restype = i
+    lib.v2v_sample_gaussian.argtypes = [i, p, ctypes.c_longlong, p]
+    lib.v2v_sample_gaussian.restype = i
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (CUDA toolkit needed to build the "
-                       "v2v_tpu_torch kernels)")
-
-
-def build(source: str = "esim.cu", verbose: bool = False) -> dict:
-    """Compile one source into a shared library named by the hash of the
-    sources and flags; an existing library of that name is reused.
-    Returns {'path', 'seconds', 'log'}."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in (source,) + _HEADERS:
-        h.update((_CSRC / name).read_bytes())
-    out = build_dir() / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return {"path": out, "seconds": 0.0, "log": "cached"}
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(_CSRC / source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": out, "seconds": seconds,
-            "log": (proc.stdout + proc.stderr).strip()}
-
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()["path"]))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.v2v_simulate_batch.argtypes = [p, i, p, p, p, p, p, p, p, p,
-                                               i, i, i, i, i, p]
-            lib.v2v_simulate_batch.restype = i
-            lib.v2v_sample_gaussian.argtypes = [i, p, ctypes.c_longlong, p]
-            lib.v2v_sample_gaussian.restype = i
-            _lib = lib
-    return _lib
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+# -fmad=false: the plain versions run separate multiplies and adds
+LIB = CudaLibrary("esim.cu", headers=("philox.cuh",),
+                  extra_flags=("-fmad=false",), bind=_bind)
+_load = LIB.get
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Task interface: sequence forward + loss for the E2VID family (port of
+"""Task interface: sequence forward + loss for E2VID and ETNet (port of
 v2v_tpu/training/interface.py::ModelInterface).
 
 Batch layout at this interface is the JAX package's channels-last one:
@@ -15,6 +15,7 @@ under no_grad.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,14 +61,18 @@ class ModelInterface:
     """Builds the model from config on `device` (parameters drawn from
     `generator`) and runs the sequence forward and the loss.
 
-    `lpips` and `teacher` may be passed in (e.g. an explicitly random
-    trunk or teacher); otherwise they are built from config, and the
-    teacher needs $V2V_WEIGHTS_DIR/raft_small.pth or V2V_RANDOM_TEACHER.
+    `lpips`, `lpips_test` and `teacher` may be passed in (e.g. an
+    explicitly random trunk or teacher); otherwise they are built from
+    config, and the teacher needs $V2V_WEIGHTS_DIR/raft_small.pth or
+    V2V_RANDOM_TEACHER.
     """
+
+    _lpips_lock = threading.Lock()
 
     def __init__(self, configs: Dict[str, Any], device=None,
                  generator: Optional[torch.Generator] = None,
-                 lpips: Optional[LPIPS] = None, teacher=None):
+                 lpips: Optional[LPIPS] = None, teacher=None,
+                 lpips_test: Optional[LPIPS] = None):
         self.configs = configs
         self.device = resolve_device(device)
         self.model = materialize(
@@ -83,7 +88,19 @@ class ModelInterface:
         self.lpips_train = lpips
         if self.loss_cfg.lpips_weight and lpips is None:
             self.lpips_train = LPIPS(self.loss_cfg.lpips_type, self.device)
+        self._lpips_test = lpips_test
         self._teacher = teacher
+
+    @property
+    def lpips_test(self) -> LPIPS:
+        """The test metric's LPIPS, always AlexNet (train_utils.py:198),
+        built at first use; locked, since the eval harness's metric
+        threads reach it."""
+        if self._lpips_test is None:
+            with self._lpips_lock:
+                if self._lpips_test is None:
+                    self._lpips_test = LPIPS("alex", self.device)
+        return self._lpips_test
 
     @property
     def teacher(self):
@@ -116,7 +133,8 @@ class ModelInterface:
                          ) -> Tuple[torch.Tensor, List[Any]]:
         """events (B,T,H,W,bins) -> (pred (B,T,H,W,1) float32, final
         state). Training runs the split forward; otherwise one model
-        step per time step."""
+        step per time step, with the model in eval mode."""
+        self.model.train(train)
         events, hw = pad_to_multiple(events, 16)
         if train and self.compute_dtype is not None:
             events = events.to(self.compute_dtype)

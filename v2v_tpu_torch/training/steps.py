@@ -1,5 +1,6 @@
-"""Train step with voxel synthesis inside it (port of
-v2v_tpu/training/steps.py: synthesize_batch and make_train_step).
+"""Train step with voxel synthesis inside it, and the eval step (port of
+v2v_tpu/training/steps.py: synthesize_batch, make_train_step and
+make_eval_step).
 
 The host ships uint8 video; threshold sampling, event simulation (K1 on
 the card), bin summation, GT frame selection, the teacher's pseudo-GT
@@ -124,5 +125,17 @@ def make_train_step(interface: ModelInterface,
                  if p.grad is not None]))
             optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    return step
+
+
+def make_eval_step(interface: ModelInterface):
+    """Streaming-eval step: forward a chunk with carried state, no
+    gradients (reset handled by the caller per sequence,
+    test_e2vid.py:53-61)."""
+
+    @torch.no_grad()
+    def step(events: torch.Tensor, state):
+        return interface.forward_sequence(events, state, train=False)
 
     return step
