@@ -26,6 +26,19 @@ Phases, one line each, any failure exits non-zero:
      the port's run_test on two synthetic 720x1280 sequences of 8
      frames (EVAID's size; sequence_length cut from 80 to 8), random
      ETNet and LPIPS-Alex trunks; K3's launch count must be 21 a frame
+ 10. hyper eval reference: full-width HyperE2VID on two 64x64 sequences
+     of 3 frames, card (K4) against CPU (plain loop)
+ 11. the hyper eval: configs/test_hypere2vid_original.yaml's HyperE2VID
+     through run_test on the same two synthetic 720x1280 sequences; K4
+     must launch once a frame
+ 12. hyper reference: a small float32 HyperE2VID train step with the
+     GT-mixing curriculum, card against CPU
+ 13. the hyper train slice: configs/train_v2v_hyper_10k.yaml at full
+     width, `--steps` steps at hyper_beta 1.0 (epoch 0 of hyper_epochs);
+     K1 once a step, K4 once a time step (40 a step), BatchNorm running
+     statistics that move
+K4 (dynamic_shift_sum) is held against its plain version, values and
+gradients, after K3 (phase 5).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 v2v_tpu_torch package beside it, the script exits 2 and prints no result.
@@ -135,6 +148,41 @@ ETNET_CONFIG = {
                       dataset_name=name)
                  for name in ("evaid", "ijrr", "hqf", "mvsec")]},
 }
+# configs/train_v2v_hyper_10k.yaml's `module` and `train_stages[0]`, and
+# configs/test_hypere2vid_original.yaml; tests/test_torch_hyper.py holds
+# them equal to the YAMLs
+HYPER_UNET = {"num_bins": 5, "skip_type": "sum",
+              "recurrent_block_type": "convlstm", "num_encoders": 3,
+              "base_num_channels": 32, "num_residual_blocks": 2,
+              "use_upsample_conv": True, "norm": "none", "kernel_size": 5,
+              "channel_multiplier": 2, "num_output_channels": 1,
+              "use_dynamic_decoder": True}
+HYPER_MODEL = {"target": "model.hyper_model.HyperE2VID",
+               "params": {"unet_kwargs": HYPER_UNET}}
+HYPER_TRAIN_MODULE = dict(FLAGSHIP_MODULE, model=HYPER_MODEL, hyper_epochs=16)
+HYPER_TRAIN_STAGE = dict(
+    FLAGSHIP_STAGE, optimizer={"target": "torch.optim.Adam",
+                               "params": {"lr": 0.001, "weight_decay": 0,
+                                          "amsgrad": True}})
+HYPER_EVAL_CONFIG = dict(ETNET_CONFIG, experiment_name="hypere2vid_original",
+                         test_output_dir="results/hypere2vid_original",
+                         module=dict(ETNET_CONFIG["module"],
+                                     model=HYPER_MODEL))
+HYPER_PARAMS = 10_149_881
+# the curriculum's beta in the train phase: epoch 0 of hyper_epochs,
+# 1 - 0/16
+HYPER_BETA = 1.0
+# K4's shapes on the path: the 720p eval's decoder 0 (B, H/4, W/4, M, CO)
+# float32, the train step's bfloat16 (B=12 at 128/4 = 32), and a shape
+# whose H, W are not multiples of the 8x8 tile and whose CO is odd
+K4_SHAPES = (((1, 180, 320, 6, 128), "float32"),
+             ((12, 32, 32, 6, 128), "bfloat16"),
+             ((2, 37, 53, 6, 97), "float32"))
+# |K4 - plain| on unit-normal z and atoms (|out| up to ~60): float32 sums
+# of 150 products in another order (fused multiply-adds, m before the
+# offsets)
+K4_ATOL = 1e-4
+
 # EVAID's frame size; frames per sequence in the eval slice (the config's
 # sequence_length of 80, cut to stay inside the run's time limit);
 # events per frame, of EVAID's order (1e5-1e6)
@@ -150,8 +198,9 @@ K3_SHAPES = ((1, 8, 14400, 32), (1, 8, 5001, 32))
 # |K3 - plain| on unit-normal q, k, v: float32 sums over 14,400 keys in
 # another order, and the scale folded into the exponent
 K3_ATOL = 1e-5
-# card (cuDNN, K3) against CPU (oneDNN, plain attention) on the full-width
-# ETNet in float32 with TF32 off, over 3 recurrent steps
+# card (cuDNN, K3 or K4) against CPU (oneDNN, the plain versions) on the
+# full-width ETNet or HyperE2VID in float32 with TF32 off, over 3
+# recurrent steps
 EVAL_REF_ATOL = 1e-4
 
 # K1's flagship shape (B, N, H, W) and the off-multiple crop it is also
@@ -268,10 +317,12 @@ def phase_device(torch):
 def _kernels():
     """Every kernel wrapper of the port, by the name the JSON line uses."""
     from v2v_tpu_torch.ops import attention as at
+    from v2v_tpu_torch.ops import dynconv as dc
     from v2v_tpu_torch.ops import voxel_cuda as vc
     return {"simulate_batch": vc.simulate_batch,
             "sample_gaussian": vc.sample_gaussian,
-            "attention": at.attention}
+            "attention": at.attention,
+            "dynamic_shift_sum": dc.dynamic_shift_sum}
 
 
 def _zero_launches() -> None:
@@ -291,8 +342,8 @@ def _tf32(torch, on: bool):
 def phase_build():
     """One nvcc per CUDA source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from v2v_tpu_torch.ops import attention, voxel_cuda
-    libs = (voxel_cuda.LIB, attention.LIB)
+    from v2v_tpu_torch.ops import attention, dynconv, voxel_cuda
+    libs = (voxel_cuda.LIB, attention.LIB, dynconv.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
         infos = list(pool.map(lambda lib: lib.build(verbose=True), libs))
     for lib, info in zip(libs, infos):
@@ -418,8 +469,86 @@ def phase_k3(torch, dev, seed):
             "library_ms": library_ms}
 
 
-def _tiny_module(l0: int):
-    mod = json.loads(json.dumps(FLAGSHIP_MODULE))
+def _shift_sum_bound(z, atoms):
+    """K4's least time: z and atoms read once, the float32 output written
+    once; 2 operations per multiply-add, k*k*M of them per output."""
+    b, h, w, m, co = z.shape
+    bytes_ = (z.numel() * z.element_size() + atoms.numel() * 4
+              + b * h * w * co * 4)
+    return _bound(bytes_, 2 * atoms.shape[-1] * m * b * h * w * co), bytes_
+
+
+def phase_k4(torch, dev, seed):
+    """K4 against its plain version on the same tensors at the eval, train
+    and ragged shapes, TF32 off; _ShiftSum's gradients at the train shape
+    against autograd through the plain loop; both timed at the two path
+    shapes."""
+    from v2v_tpu_torch.ops import dynconv as dc
+    _tf32(torch, False)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    worst, inputs = 0.0, []
+    for shape, dtype in K4_SHAPES:
+        z = torch.randn(shape, generator=g, device=dev).to(
+            getattr(torch, dtype))
+        atoms = torch.randn(shape[:4] + (25,), generator=g, device=dev)
+        got = dc.dynamic_shift_sum(z, atoms, 5)
+        want = dc.dynamic_shift_sum_plain(z, atoms, 5)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        _log(f"[k4] z {shape} {dtype}: max|diff| {err:.3e} (tolerance "
+             f"{K4_ATOL}), max|out| {float(want.abs().max()):.3f}")
+        _require(got.dtype == torch.float32 and got.shape == shape[:3]
+                 + shape[4:], f"K4 {shape}: output {got.dtype} "
+                 f"{tuple(got.shape)}")
+        _require(bool(torch.isfinite(got).all()), f"K4 {shape}: non-finite")
+        _require(err <= K4_ATOL, f"K4 {shape}: beyond the tolerance")
+        worst = max(worst, err)
+        inputs.append((z, atoms))
+    # gradients at the train shape (bfloat16 z): dz is a float32 sum
+    # rounded once to bfloat16 (half an ulp, 2^-8 relative), datoms is
+    # float32 against autograd on the same values widened to float32
+    z, atoms = inputs[1]
+    cot = torch.randn(z.shape[:3] + z.shape[4:], generator=g, device=dev)
+    zk = z.detach().requires_grad_()
+    ak = atoms.detach().requires_grad_()
+    dc.dynamic_shift_sum(zk, ak, 5).backward(cot)
+    zp = z.detach().to(torch.float32).requires_grad_()
+    ap = atoms.detach().requires_grad_()
+    dc.dynamic_shift_sum_plain(zp, ap, 5).backward(cot)
+    torch.cuda.synchronize()
+    _require(zk.grad.dtype == torch.bfloat16, "K4: dz is not bfloat16")
+    dz_excess = float(((zk.grad.float() - zp.grad).abs()
+                       - 2 ** -8 * zp.grad.abs()).max())
+    da_err = float((ak.grad - ap.grad).abs().max())
+    _log(f"[k4] gradients at {tuple(z.shape)} bfloat16: max(|dz - ref| - "
+         f"2^-8 |ref|) {dz_excess:.3e} (tolerance {K4_ATOL}), max|datoms - "
+         f"ref| {da_err:.3e} (tolerance {K4_ATOL})")
+    _require(dz_excess <= K4_ATOL and da_err <= K4_ATOL,
+             "K4: gradients differ from autograd through the plain loop")
+    times = []
+    for z, atoms in inputs[:2]:
+        ms = _cuda_ms(lambda: dc.dynamic_shift_sum(z, atoms, 5), 20)
+        plain_ms = _cuda_ms(lambda: dc.dynamic_shift_sum_plain(z, atoms, 5),
+                            5, warmup=1)
+        (bound_ms, bound_by), bytes_ = _shift_sum_bound(z, atoms)
+        _log(f"[k4] z {tuple(z.shape)} {str(z.dtype)[6:]}: kernel {ms:.4f} "
+             f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+             f"({bound_by}: {bytes_ / 1e6:.1f} MB); "
+             f"{bytes_ / (ms / 1e3) / 1e12:.2f} TB/s achieved")
+        times.append((ms, plain_ms, bound_ms, bound_by))
+    _tf32(torch, True)
+    (ms, plain_ms, bound_ms, bound_by), train = times
+    return {"name": "dynamic_shift_sum", "route": "cuda",
+            "source": "v2v_tpu_torch/csrc/dynconv.cu",
+            "replaces": "v2v_tpu/ops/dynconv.py:145",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "train_shape": {"ms": train[0], "plain_ms": train[1],
+                            "bound_ms": train[2], "bound_by": train[3]}}
+
+
+def _tiny_module(l0: int, module=None):
+    mod = json.loads(json.dumps(module or FLAGSHIP_MODULE))
     mod["loss"]["temporal_consistency_L0"] = l0
     mod["model"]["params"]["unet_kwargs"].update(base_num_channels=4,
                                                  num_residual_blocks=1)
@@ -427,10 +556,14 @@ def _tiny_module(l0: int):
     return mod
 
 
-def phase_reference(torch, dev, seed):
-    """One float32 train step of the slice (flagship loss, tiny model, 64
-    px) on the card against the same step on the CPU, same weights and
-    voxels: the CPU path is the one the tier-1 tests hold against JAX."""
+def phase_reference(torch, dev, seed, module=None, tag="reference",
+                    hyper_beta=None):
+    """One float32 train step of a slice (its loss, a tiny model, 64 px)
+    on the card against the same step on the CPU, same weights and
+    voxels: the CPU path is the one the tier-1 tests hold against JAX.
+    With `hyper_beta` the HyperE2VID curriculum runs, K4 must launch once
+    a time step on the card, and the BatchNorm running statistics (in
+    the state_dict) must agree too."""
     import copy
     from v2v_tpu_torch.losses.lpips import LPIPS
     from v2v_tpu_torch.ops.voxel import SimConfig
@@ -440,11 +573,12 @@ def phase_reference(torch, dev, seed):
     from v2v_tpu_torch.training.steps import make_train_step, synthesize_batch
     _tf32(torch, False)
     cpu = torch.device("cpu")
-    lr = 1e-4
-    mod = _tiny_module(l0=2)
+    lr, t = 1e-4, 4
+    mod = _tiny_module(l0=2, module=module)
     g = torch.Generator(device=dev).manual_seed(seed)
-    video = _drifting_video(2, 4 * 5 + 1, 64, 64, seed, dev)
+    video = _drifting_video(2, t * 5 + 1, 64, 64, seed, dev)
     events, frame = synthesize_batch(video, g, SimConfig(), 5, 1)
+    kw = {} if hyper_beta is None else {"hyper_beta": hyper_beta}
     runs = []
     lp = LPIPS("vgg", cpu)
     teacher = random_teacher(12, cpu)
@@ -460,21 +594,26 @@ def phase_reference(torch, dev, seed):
             iface.model.load_state_dict(state)
         opt = Adam(lr=lr, amsgrad=True).make(iface.model.parameters())
         step = make_train_step(iface, opt)
-        loss, aux = step({"events": events.to(d), "frame": frame.to(d)})
+        _zero_launches()
+        loss, aux = step({"events": events.to(d), "frame": frame.to(d)}, **kw)
         runs.append((float(loss), float(aux["grad_norm"]),
                      {k: v.detach().to(cpu)
-                      for k, v in iface.model.state_dict().items()}))
-    (lc, gc, pc), (lh, gh, ph) = runs
+                      for k, v in iface.model.state_dict().items()},
+                     _read_launches()["dynamic_shift_sum"]))
+    (lc, gc, pc, kc), (lh, gh, ph, kh) = runs
     perr = max(float((pc[k] - ph[k]).abs().max()) for k in pc)
-    _log(f"[reference] loss cuda {lc:.6f} cpu {lh:.6f}  grad_norm cuda "
-         f"{gc:.6f} cpu {gh:.6f}  max|param diff| after step {perr:.2e}")
+    _log(f"[{tag}] loss cuda {lc:.6f} cpu {lh:.6f}  grad_norm cuda "
+         f"{gc:.6f} cpu {gh:.6f}  max|state_dict diff| after step "
+         f"{perr:.2e}; K4 launches {kc} on the card, {kh} on the CPU")
     _require(math.isfinite(lc) and abs(lc - lh) <= 1e-4 * abs(lh),
-             "reference: loss differs between card and CPU")
-    _require(abs(gc - gh) <= 1e-3 * abs(gh), "reference: grad norm differs")
+             f"{tag}: loss differs between card and CPU")
+    _require(abs(gc - gh) <= 1e-3 * abs(gh), f"{tag}: grad norm differs")
     # Adam's first step moves each weight by lr*g/(|g|+eps), under lr in
     # size: a gradient near zero may flip sign between the devices
     _require(perr <= 2 * lr * (1 + 1e-3),
-             "reference: params after the step differ")
+             f"{tag}: params or running statistics after the step differ")
+    _require(kc == (t if hyper_beta is not None else 0) and kh == 0,
+             f"{tag}: K4 launch count")
     _tf32(torch, True)
 
 
@@ -511,7 +650,14 @@ def _profile(torch, tag, fn):
         _log(f"[{tag}]   {dev_ms(e):8.2f} ms x{e.count:<5d} {e.key[:110]}")
 
 
-def phase_slice(torch, dev, seed, steps, profile=False):
+def phase_slice(torch, dev, seed, steps, profile=False, module=None,
+                stage=None, n_params_want=FLAGSHIP_PARAMS, tag="slice",
+                hyper_beta=None):
+    """A train config at full width (default the flagship) with a random
+    LPIPS trunk and a random RAFT-small teacher, `steps` train steps from
+    uint8 video; K1 must launch once a step. With `hyper_beta` (the
+    HyperE2VID config) K4 must launch once a time step and the BatchNorm
+    running statistics must move."""
     from v2v_tpu_torch.losses.lpips import LPIPS
     from v2v_tpu_torch.training.interface import (ModelInterface,
                                                   aggregate_per_source)
@@ -519,61 +665,81 @@ def phase_slice(torch, dev, seed, steps, profile=False):
     from v2v_tpu_torch.training.steps import make_train_step
     from v2v_tpu_torch.training.train import (make_optimizer, make_scheduler,
                                               sim_config_from_dataset)
-    ds = FLAGSHIP_STAGE["dataset"]
+    module = module or FLAGSHIP_MODULE
+    stage = stage or FLAGSHIP_STAGE
+    ds = stage["dataset"]
     train_ds = ds["train"][0]
     b = ds["train_batch_size"]
     bins, fpb, t = train_ds["num_bins"], train_ds["frames_per_bin"], \
         train_ds["sequence_length"]
     hw = train_ds["crop_size"]
     g = torch.Generator(device=dev).manual_seed(seed)
-    lp = LPIPS(FLAGSHIP_MODULE["loss"]["lpips_type"], dev, generator=g)
+    lp = LPIPS(module["loss"]["lpips_type"], dev, generator=g)
     teacher = random_teacher(12, dev, generator=g)
-    iface = ModelInterface(FLAGSHIP_MODULE, dev, generator=g, lpips=lp,
+    iface = ModelInterface(module, dev, generator=g, lpips=lp,
                            teacher=teacher)
     n_params = sum(p.numel() for p in iface.model.parameters())
-    _require(n_params == FLAGSHIP_PARAMS, f"E2VID has {n_params} parameters")
-    opt_cfg = make_optimizer(FLAGSHIP_STAGE["optimizer"])
-    sched = make_scheduler(FLAGSHIP_STAGE["lr_scheduler"])
+    _require(n_params == n_params_want,
+             f"{tag}: the model has {n_params} parameters")
+    opt_cfg = make_optimizer(stage["optimizer"])
+    sched = make_scheduler(stage["lr_scheduler"])
     opt = opt_cfg.make(iface.model.parameters())
     for group in opt.param_groups:
         group["lr"] = opt_cfg.base_lr * sched(0)
     step = make_train_step(iface, opt, sim_config_from_dataset(train_ds),
                            num_bins=bins, frames_per_bin=fpb)
+    kw = {} if hyper_beta is None else {"hyper_beta": hyper_beta}
     video = _drifting_video(b, t * bins * fpb + 1, hw, hw, seed + 2, dev)
     batch = {"video": video,
              "data_source_idx": torch.full((b,), 11, dtype=torch.int64)}
-    _log(f"[slice] E2VID {n_params} params, B={b} N={video.shape[1]} "
-         f"T={t} {hw}x{hw}, compute {FLAGSHIP_MODULE['compute_dtype']}, "
-         f"Adam amsgrad lr {opt.param_groups[0]['lr']}, random LPIPS trunk "
-         f"and random RAFT-small teacher")
+    stats0 = {k: v.clone() for k, v in iface.model.named_buffers()
+              if k.endswith(("running_mean", "running_var"))}
+    _log(f"[{tag}] {type(iface.model).__name__} {n_params} params, B={b} "
+         f"N={video.shape[1]} T={t} {hw}x{hw}, compute "
+         f"{module['compute_dtype']}, Adam amsgrad lr "
+         f"{opt.param_groups[0]['lr']}, random LPIPS trunk and random "
+         f"RAFT-small teacher" + (f", hyper_beta {hyper_beta}"
+                                  if kw else ""))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     times, losses = [], []
     for i in range(steps):
         t0 = time.perf_counter()
-        loss, aux = step(batch, g)
+        loss, aux = step(batch, g, **kw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
         logs = aggregate_per_source(aux, batch["data_source_idx"].numpy())
-        _log(f"[slice] step {i}: loss {losses[-1]:.5f} grad_norm "
+        _log(f"[{tag}] step {i}: loss {losses[-1]:.5f} grad_norm "
              f"{float(aux['grad_norm']):.5f} l1 {logs['l1_loss']:.4f} "
              f"lpips {logs['perceptual_loss']:.4f} tc "
              f"{logs['temporal_consistency_loss']:.4f} "
              f"({times[-1]:.1f} ms)")
-        _require(math.isfinite(losses[-1]), "slice: loss is not finite")
+        _require(math.isfinite(losses[-1]), f"{tag}: loss is not finite")
         _require(math.isfinite(float(aux["grad_norm"])),
-                 "slice: grad norm is not finite")
-        _require(aux["l1_loss"].shape == (b,), "slice: per-sample terms")
+                 f"{tag}: grad norm is not finite")
+        _require(aux["l1_loss"].shape == (b,), f"{tag}: per-sample terms")
     launches = _read_launches()
     _require(launches["simulate_batch"] == steps,
-             f"slice: K1 launched {launches['simulate_batch']} times in "
+             f"{tag}: K1 launched {launches['simulate_batch']} times in "
              f"{steps} steps")
+    want_k4 = t * steps if kw else 0
+    _require(launches["dynamic_shift_sum"] == want_k4,
+             f"{tag}: K4 launched {launches['dynamic_shift_sum']} times, "
+             f"want {want_k4}")
+    if stats0:
+        moved = {k: float((v - stats0[k]).abs().max())
+                 for k, v in iface.model.named_buffers() if k in stats0}
+        _log(f"[{tag}] BatchNorm running statistics moved by up to "
+             + ", ".join(f"{k.split('.', 3)[-1]} {v:.4f}"
+                         for k, v in moved.items()))
+        _require(all(v > 0 and math.isfinite(v) for v in moved.values()),
+                 f"{tag}: BatchNorm running statistics did not move")
     if profile:
-        _profile(torch, "profile", lambda: step(batch, g))
+        _profile(torch, f"{tag}-profile", lambda: step(batch, g, **kw))
     after_first = times[1:] or times
-    _log(f"[slice] ms/step after the first: "
+    _log(f"[{tag}] ms/step after the first: "
          f"{statistics.median(after_first):.1f} (all: "
          f"{', '.join(f'{x:.1f}' for x in times)}); max_memory_allocated "
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
@@ -629,12 +795,13 @@ class _SyntheticSequence:
         }
 
 
-def phase_eval_reference(torch, dev, seed):
-    """The eval step of the full-width ETNet on two 64x64 sequences of 3
-    frames, with chunk_threshold forced to 16 so every attention takes
-    the long-sequence route: K3 on the card, its plain version on the
-    CPU; same weights, float32, TF32 off."""
-    from v2v_tpu_torch.models.eitr import MultiheadAttention
+def phase_eval_reference(torch, dev, seed, module=None, kernel="attention",
+                         per_frame=K3_PER_FRAME, tag="eval-reference"):
+    """The eval step of a full-width model (default ETNet, whose caller
+    forces chunk_threshold to 16 so every attention takes the
+    long-sequence route) on two 64x64 sequences of 3 frames: the
+    kernel on the card, its plain version on the CPU; same weights,
+    float32, TF32 off."""
     from v2v_tpu_torch.training.interface import ModelInterface
     from v2v_tpu_torch.training.steps import make_eval_step
     _tf32(torch, False)
@@ -643,51 +810,53 @@ def phase_eval_reference(torch, dev, seed):
     seqs = [_SyntheticSequence(f"reference{i}", seed + 10 + i, frames, hw,
                                2000, ETNET_CONFIG["test_stage"]["test"][0])[0]
             for i in range(2)]
-    old = MultiheadAttention.chunk_threshold
-    MultiheadAttention.chunk_threshold = 16
     runs, weights = [], None
-    try:
-        for d in (dev, cpu):
-            iface = ModelInterface(
-                ETNET_CONFIG["module"], d,
-                generator=torch.Generator(device=d).manual_seed(seed))
-            if weights is None:
-                weights = {k: v.to(cpu)
-                           for k, v in iface.model.state_dict().items()}
-            else:
-                iface.model.load_state_dict(weights)
-            step = make_eval_step(iface)
-            _zero_launches()
-            preds = []
-            for sq in seqs:
-                events = torch.as_tensor(sq["events"][None], device=d)
-                pred, _ = step(events, iface.init_state(1, *hw))
-                preds.append(pred.to(cpu))
-            runs.append((torch.cat(preds), _read_launches()["attention"]))
-    finally:
-        MultiheadAttention.chunk_threshold = old
+    for d in (dev, cpu):
+        iface = ModelInterface(
+            module or ETNET_CONFIG["module"], d,
+            generator=torch.Generator(device=d).manual_seed(seed))
+        if weights is None:
+            weights = {k: v.to(cpu)
+                       for k, v in iface.model.state_dict().items()}
+        else:
+            iface.model.load_state_dict(weights)
+        step = make_eval_step(iface)
+        _zero_launches()
+        preds = []
+        for sq in seqs:
+            events = torch.as_tensor(sq["events"][None], device=d)
+            pred, _ = step(events, iface.init_state(1, *hw))
+            preds.append(pred.to(cpu))
+        runs.append((torch.cat(preds), _read_launches()[kernel]))
     (pc, lc), (ph, lh) = runs
     err = float((pc - ph).abs().max())
-    want = K3_PER_FRAME * frames * len(seqs)
-    _log(f"[eval-reference] ETNet {hw[0]}x{hw[1]}, {len(seqs)} sequences x "
-         f"{frames} frames, chunk_threshold 16: max|pred cuda - pred cpu| "
-         f"{err:.3e} (tolerance {EVAL_REF_ATOL}); K3 launches {lc} on the "
-         f"card (want {want}), {lh} on the CPU")
-    _require(bool(torch.isfinite(pc).all()), "eval-reference: non-finite")
-    _require(err <= EVAL_REF_ATOL, "eval-reference: card and CPU differ")
-    _require(lc == want and lh == 0, "eval-reference: K3 launch count")
+    want = per_frame * frames * len(seqs)
+    _log(f"[{tag}] {type(iface.model).__name__} {hw[0]}x{hw[1]}, "
+         f"{len(seqs)} sequences x {frames} frames: max|pred cuda - pred "
+         f"cpu| {err:.3e} (tolerance {EVAL_REF_ATOL}); {kernel} launches "
+         f"{lc} on the card (want {want}), {lh} on the CPU")
+    _require(bool(torch.isfinite(pc).all()), f"{tag}: non-finite")
+    _require(err <= EVAL_REF_ATOL, f"{tag}: card and CPU differ")
+    _require(lc == want and lh == 0, f"{tag}: {kernel} launch count")
     _tf32(torch, True)
 
 
-def phase_eval(torch, dev, seed, profile=False):
-    """configs/test_etnet_original.yaml's ETNet through the port's
-    run_test on two synthetic 720x1280 sequences, timed per frame."""
+def phase_eval(torch, dev, seed, profile=False, config=None,
+               kernel="attention", per_frame=K3_PER_FRAME, tag="eval",
+               sigmoid_output=True):
+    """A test config's model (default configs/test_etnet_original.yaml's
+    ETNet) through the port's run_test on two synthetic 720x1280
+    sequences, timed per frame; `kernel` must launch `per_frame` times a
+    frame. Every prediction is finite; a model whose output ends in a
+    sigmoid (ETNet's) must also predict in [0, 1] before the harness
+    clips. HyperE2VID's has no final activation, so no range holds for
+    it."""
     from v2v_tpu_torch.data.interface import ConcatDataset
-    from v2v_tpu_torch.eval.harness import run_test
+    from v2v_tpu_torch.eval import harness
     from v2v_tpu_torch.losses.lpips import LPIPS
     from v2v_tpu_torch.training.interface import ModelInterface
     from v2v_tpu_torch.training.steps import make_eval_step
-    cfg = json.loads(json.dumps(ETNET_CONFIG))
+    cfg = json.loads(json.dumps(config or ETNET_CONFIG))
     cfg.pop("test_output_dir")     # PNG output needs cv2, absent here
     data_cfg = cfg["test_stage"]["test"][0]          # evaid
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -698,45 +867,48 @@ def phase_eval(torch, dev, seed, profile=False):
     seqs = [_SyntheticSequence(f"synthetic{i}", seed + 20 + i, EVAL_FRAMES,
                                EVAL_HW, EVAL_EVENTS_PER_FRAME, data_cfg)
             for i in range(2)]
-    model, plain_step = iface.model, iface.model.step
+    model = iface.model
     times, outs = [], []
 
-    def timed_step(x, states):
+    def timed_forward(*args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, states = plain_step(x, states)
+        out, states = type(model).forward(model, *args, **kw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out["image"].detach().clone())
         return out, states
 
-    model.step = timed_step
-    _log(f"[eval] ETNet {n_params} params at {EVAL_HW[0]}x{EVAL_HW[1]} "
-         f"({EVAL_HW[0] // 8 * EVAL_HW[1] // 8} tokens a stream), 2 "
-         f"sequences x {EVAL_FRAMES} frames, {EVAL_EVENTS_PER_FRAME} events "
-         f"a frame, random ETNet and LPIPS-Alex trunks")
+    model.forward = timed_forward
+    _log(f"[{tag}] {type(model).__name__} {n_params} params at "
+         f"{EVAL_HW[0]}x{EVAL_HW[1]}, 2 sequences x {EVAL_FRAMES} frames, "
+         f"{EVAL_EVENTS_PER_FRAME} events a frame, random weights and "
+         f"LPIPS-Alex trunk")
     root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
     try:
-        final = run_test(iface, cfg, root=root,
-                         dataset=ConcatDataset(seqs))
+        final = harness.run_test(iface, cfg, root=root,
+                                 dataset=ConcatDataset(seqs))
     finally:
-        model.step = plain_step
+        del model.forward
     wall = time.perf_counter() - t0
     launches = _read_launches()
     n_frames = 2 * EVAL_FRAMES
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    _require(launches["attention"] == K3_PER_FRAME * n_frames,
-             f"eval: K3 launched {launches['attention']} times in "
+    _require(launches[kernel] == per_frame * n_frames,
+             f"{tag}: {kernel} launched {launches[kernel]} times in "
              f"{n_frames} frames")
-    _require(len(outs) == n_frames, f"eval: {len(outs)} model steps")
+    _require(len(outs) == n_frames, f"{tag}: {len(outs)} model steps")
     for img in outs:
-        _require(bool(torch.isfinite(img).all()), "eval: non-finite pred")
-        _require(float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
-                 "eval: pred outside [0, 1]")
+        _require(bool(torch.isfinite(img).all()), f"{tag}: non-finite pred")
+        _require(not sigmoid_output or (float(img.min()) >= 0.0
+                                        and float(img.max()) <= 1.0),
+                 f"{tag}: pred outside [0, 1]")
+    lo = min(float(img.min()) for img in outs)
+    hi = max(float(img.max()) for img in outs)
     # the harness reset the state at the second sequence: its first frame
     # equals a run from a fresh state
     first = torch.as_tensor(seqs[1][0]["events"][None, :1], device=dev)
@@ -746,27 +918,27 @@ def phase_eval(torch, dev, seed, profile=False):
                        - outs[EVAL_FRAMES][0, 0]).abs().max())
     carried, _ = eval_step(first, state)
     carried_diff = float((carried - fresh).abs().max())
-    _log(f"[eval] sequence 2, frame 1: max|harness - fresh state| "
-         f"{reset_err:.3e}; the same frame on a carried state differs by "
-         f"{carried_diff:.3e}")
-    _require(reset_err <= 1e-5, "eval: the state was not reset")
+    _log(f"[{tag}] model output range [{lo:.4f}, {hi:.4f}]; sequence 2, "
+         f"frame 1: max|harness - fresh state| {reset_err:.3e}; the same "
+         f"frame on a carried state differs by {carried_diff:.3e}")
+    _require(reset_err <= 1e-5, f"{tag}: the state was not reset")
     with open(os.path.join(root, "tensorboard_logs",
                            cfg["experiment_name"], "test_metrics.txt")) as f:
         metrics = {k: float(v) for k, v in
                    (line.rsplit(": ", 1) for line in f if line.strip())}
     _require(len(metrics) == 6 and all(math.isfinite(v)
                                        for v in metrics.values()),
-             f"eval: test_metrics.txt holds {metrics}")
-    _log("[eval] test_metrics.txt: " + ", ".join(
+             f"{tag}: test_metrics.txt holds {metrics}")
+    _log(f"[{tag}] test_metrics.txt: " + ", ".join(
         f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
     after_first = times[1:]
-    _log(f"[eval] ms/frame after the first: "
+    _log(f"[{tag}] ms/frame after the first: "
          f"{statistics.median(after_first):.1f} (min {min(after_first):.1f}"
          f", max {max(after_first):.1f}, first {times[0]:.1f}); run_test "
          f"{wall:.1f} s for {n_frames} frames; max_memory_allocated "
          f"{peak:.2f} GiB; launches {launches}")
     if profile:
-        _profile(torch, "eval-profile", lambda: eval_step(first, state))
+        _profile(torch, f"{tag}-profile", lambda: eval_step(first, state))
     return launches, final
 
 
@@ -795,20 +967,43 @@ def main(argv=None) -> int:
         k2 = phase_k2(torch, dev, args.seed)
         k1 = phase_k1(torch, dev, args.seed)
         k3 = phase_k3(torch, dev, args.seed)
+        k4 = phase_k4(torch, dev, args.seed)
         phase_reference(torch, dev, args.seed)
-        train_launches = phase_slice(torch, dev, args.seed, args.steps,
-                                     args.profile)
-        phase_eval_reference(torch, dev, args.seed)
-        eval_launches, _ = phase_eval(torch, dev, args.seed, args.profile)
+        paths = {"slice": phase_slice(torch, dev, args.seed, args.steps,
+                                      args.profile)}
+        from v2v_tpu_torch.models.eitr import MultiheadAttention
+        old = MultiheadAttention.chunk_threshold
+        MultiheadAttention.chunk_threshold = 16
+        try:
+            phase_eval_reference(torch, dev, args.seed)
+        finally:
+            MultiheadAttention.chunk_threshold = old
+        paths["eval"], _ = phase_eval(torch, dev, args.seed, args.profile)
+        phase_eval_reference(torch, dev, args.seed, HYPER_EVAL_CONFIG[
+            "module"], "dynamic_shift_sum", 1, "hyper-eval-reference")
+        paths["hyper-eval"], _ = phase_eval(
+            torch, dev, args.seed, args.profile, HYPER_EVAL_CONFIG,
+            "dynamic_shift_sum", 1, "hyper-eval", sigmoid_output=False)
+        phase_reference(torch, dev, args.seed, HYPER_TRAIN_MODULE,
+                        "hyper-reference", hyper_beta=0.7)
+        paths["hyper-train"] = phase_slice(
+            torch, dev, args.seed, args.steps, args.profile,
+            HYPER_TRAIN_MODULE, HYPER_TRAIN_STAGE, HYPER_PARAMS,
+            "hyper-train", HYPER_BETA)
     except Exception as e:   # every phase failure ends the run non-zero
         import traceback
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    k1["launches"] = train_launches["simulate_batch"]
-    k2["launches"] = train_launches["sample_gaussian"]
-    k3["launches"] = eval_launches["attention"]
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    # launches of each kernel on the main paths, each counted from 0 just
+    # before its path ran
+    for rec in (k1, k2, k3, k4):
+        by_path = {p: n[rec["name"]] for p, n in paths.items()
+                   if n[rec["name"]]}
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
+        _log(f"[launches] {rec['name']}: {rec['launches']} {by_path}")
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

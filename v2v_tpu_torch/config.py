@@ -15,6 +15,7 @@ from typing import Any, Dict
 TARGET_ALIASES: Dict[str, str] = {
     "model.model.E2VIDRecurrent": "v2v_tpu_torch.models.model.E2VIDRecurrent",
     "model.eitr.eitr.EITR": "v2v_tpu_torch.models.eitr.EITR",
+    "model.hyper_model.HyperE2VID": "v2v_tpu_torch.models.hyper.HyperE2VID",
     "torch.optim.Adam": "v2v_tpu_torch.training.optim.Adam",
     "torch.optim.lr_scheduler.StepLR": "v2v_tpu_torch.training.optim.StepLR",
     "data.testh5.TestH5Dataset": "v2v_tpu_torch.data.h5.TestH5Dataset",

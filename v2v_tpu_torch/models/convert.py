@@ -7,7 +7,10 @@ parity tests run both on the same numbers. Rules:
 
   * kernel (kH,kW,I,O) -> weight (O,I,kH,kW); kernel (I,O) -> weight (O,I)
   * packed attention in_proj_kernel (d,3d) -> in_proj_weight (3d,d)
+  * DynamicConv compositional_coefficients (1,1,I,O) -> (O,I,1,1)
   * scale -> weight; other leaves keep their name
+  * batch_stats {mean, var} -> running_mean / running_var, with
+    num_batches_tracked 0 (JAX does not count batches)
   * flax child `encoders_0` of a torch ModuleList -> `encoders.0`
   * the decoder stack's `decoders/decoders_0` -> `decoders.0`
   * ETNet's stacked streams `tri_encoder`/`tri_decoder` (leading axis 3)
@@ -25,7 +28,8 @@ import torch
 # `{name}_{i}` (the subset of the reference converter's list that the
 # ported modules use)
 _MODULELISTS = ("encoders", "resblocks", "layer1", "layer2", "layer3",
-                "downsample", "DownsampleConv", "UpsampleConv", "layers")
+                "downsample", "DownsampleConv", "UpsampleConv", "layers",
+                "bases_net")
 _DECODER_STACKS = ("decoders",)
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 
@@ -89,7 +93,8 @@ def _unstack_eitr_streams(tree: Dict[str, Any]) -> Dict[str, Any]:
 
 def jax_params_to_state_dict(flax_params: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
-    """{'params': tree} (or the bare tree) of numpy arrays -> state_dict."""
+    """{'params': tree[, 'batch_stats': tree]} (or the bare params tree)
+    of numpy arrays -> state_dict."""
     tree = _unstack_eitr_streams(flax_params.get("params", flax_params))
     sd: Dict[str, torch.Tensor] = {}
     for path, val in _leaves(tree):
@@ -102,7 +107,14 @@ def jax_params_to_state_dict(flax_params: Dict[str, Any]
         elif leaf == "kernel":
             leaf = "weight"
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif leaf == "compositional_coefficients":
+            arr = arr.transpose(3, 2, 0, 1)
         elif leaf == "scale":
             leaf = "weight"
         sd[".".join(mod + [leaf])] = torch.from_numpy(np.array(arr))
+    for path, val in _leaves(flax_params.get("batch_stats", {})):
+        mod = _torch_module_path(path[:-1])
+        sd[".".join(mod + [f"running_{path[-1]}"])] = torch.from_numpy(
+            np.array(val, dtype=np.float32))
+        sd[".".join(mod + ["num_batches_tracked"])] = torch.tensor(0)
     return sd

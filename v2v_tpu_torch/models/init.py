@@ -23,12 +23,16 @@ def init_params_(module: nn.Module, generator: torch.Generator,
     """Refill every Conv2d. 'uniform': torch's default, weight and bias
     ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)). 'he': weight ~ N(0, 2/fan_in),
     bias 0. Linear layers get torch's default uniform, LayerNorms ones
-    and zeros, and a module with an `init_params_(generator)` method
-    fills its own parameters."""
+    and zeros, BatchNorms ones and zeros with mean 0, var 1 and no batch
+    counted, and a module with an `init_params_(generator)` method fills
+    its own parameters and buffers."""
     for m in module.modules():
         if isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+            continue
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.reset_parameters()
             continue
         if hasattr(m, "init_params_"):
             m.init_params_(generator)

@@ -35,6 +35,39 @@ def _no_norm(norm: Optional[str]) -> None:
             f"norm={norm!r}: the port covers E2VID with norm none only")
 
 
+class TorchBatchNorm(nn.BatchNorm2d):
+    """nn.BatchNorm2d (momentum 0.1, eps 1e-5, affine, running stats) that
+    also runs on parameter copies of another dtype than its f32 running
+    buffers (v2v_tpu/models/submodules.py::TorchBatchNorm). In eval it
+    normalizes with the stored statistics; in training with the live
+    batch's, computed in f32, and it updates the running mean and the
+    unbiased running var in place. The output has x's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            xf = x.to(torch.float32)
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            n = x.numel() // x.shape[1]
+            if n <= 1:
+                raise ValueError(
+                    f"TorchBatchNorm: {n} value(s) per channel (input shape "
+                    f"{tuple(x.shape)}); torch BatchNorm2d rejects this in "
+                    f"training mode")
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * var * (n / (n - 1)))
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.to(torch.float32) - mean[:, None, None]) * inv[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 class ConvLayer(nn.Module):
     """Conv2d + activation (model/submodules.py:7-34)."""
 

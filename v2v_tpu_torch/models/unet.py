@@ -40,10 +40,19 @@ class UNetConfig:
     recurrent_block_type: str = "convlstm"
     final_activation: Optional[str] = None
 
+    # unet_kwargs keys that wrapper models read rather than the core UNet
+    # (v2v_tpu/models/unet.py UNetConfig._PASS_THROUGH): never a typo
+    _PASS_THROUGH = frozenset({
+        "crop_size", "mlp_layers", "use_cnn_representation", "normalize",
+        "combine_voxel", "RepCNN_num_layers", "RepCNN_kernel_size",
+        "RepCNN_padding", "RepCNN_channel", "recurrent_network",
+        "use_dynamic_decoder", "unet_kwargs", "num_bins_events",
+    })
+
     @classmethod
     def from_kwargs(cls, kwargs: Dict[str, Any]) -> "UNetConfig":
         known = {f.name for f in dataclasses.fields(cls)}
-        unknown = sorted(set(kwargs) - known)
+        unknown = sorted(set(kwargs) - known - cls._PASS_THROUGH)
         if unknown:
             warnings.warn(f"unet_kwargs keys not recognized (typo?): "
                           f"{unknown} — the reference would reject these")
@@ -113,14 +122,16 @@ class UNetRecurrent(nn.Module):
             new_states.append(s)
         return blocks, new_states
 
-    def tail(self, head: torch.Tensor, blocks: List[torch.Tensor]
-             ) -> Dict[str, torch.Tensor]:
+    def tail(self, head: torch.Tensor, blocks: List[torch.Tensor],
+             dec0_args: tuple = ()) -> Dict[str, torch.Tensor]:
+        """Resblocks, decoders with sum skips, pred; `dec0_args` go to the
+        first decoder after its input (HyperE2VID's dynamic decoder)."""
         x = blocks[-1]
         for rb in self.resblocks:
             x = rb(x)
         n = self.cfg.num_encoders
         for i, dec in enumerate(self.decoders):
-            x = dec(x + blocks[n - i - 1])
+            x = dec(x + blocks[n - i - 1], *(dec0_args if i == 0 else ()))
         img = self.pred(x + head)
         if self.final_activation is not None:
             img = self.final_activation(img)

@@ -1,5 +1,5 @@
-"""Task interface: sequence forward + loss for E2VID and ETNet (port of
-v2v_tpu/training/interface.py::ModelInterface).
+"""Task interface: sequence forward + loss for E2VID, ETNet and
+HyperE2VID (port of v2v_tpu/training/interface.py::ModelInterface).
 
 Batch layout at this interface is the JAX package's channels-last one:
 events (B,T,H,W,bins), frame (B,T,H,W,1), flow (B,T,H,W,2). The model
@@ -82,7 +82,13 @@ class ModelInterface:
         if configs.get("normalize_voxels", False):
             raise NotImplementedError("normalize_voxels is not ported yet")
         self.compute_dtype = _DTYPES[configs.get("compute_dtype", None)]
-        self.scan_split = configs.get("scan_split", True)
+        # the split forward batches the tail over B*T, which would change
+        # the live statistics of a BatchNorm model in training
+        self.scan_split = configs.get("scan_split", True) and not any(
+            isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+            for m in self.model.modules())
+        # the HyperE2VID GT-mixing curriculum: beta = 1 - epoch/hyper_epochs
+        self.hyper_epochs = configs.get("hyper_epochs", 0)
         # the pseudo-GT teacher's dtype (v2v_tpu raft_flow's default)
         self.teacher_dtype: Optional[torch.dtype] = torch.bfloat16
         self.lpips_train = lpips
@@ -128,26 +134,37 @@ class ModelInterface:
                 self.model, params, a, {"method": method})
         return lambda *a, method: self.model(*a, method=method)
 
-    def forward_sequence(self, events: torch.Tensor, state: List[Any],
-                         train: bool = False
-                         ) -> Tuple[torch.Tensor, List[Any]]:
+    def forward_sequence(self, events: torch.Tensor, state: Any,
+                         train: bool = False,
+                         gt_frames: Optional[torch.Tensor] = None,
+                         hyper_beta: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, Any]:
         """events (B,T,H,W,bins) -> (pred (B,T,H,W,1) float32, final
-        state). Training runs the split forward; otherwise one model
-        step per time step, with the model in eval mode."""
+        state). Training runs the split forward, unless the model has
+        BatchNorms or the HyperE2VID curriculum is on (`gt_frames`
+        (B,T,H,W,1) and `hyper_beta` given: its prediction feeds back);
+        otherwise one model step per time step. The model is in training
+        mode only when `train`."""
         self.model.train(train)
         events, hw = pad_to_multiple(events, 16)
+        use_hyper = gt_frames is not None and hyper_beta is not None
+        if use_hyper:
+            gt_frames, _ = pad_to_multiple(gt_frames, 16)
         if train and self.compute_dtype is not None:
             events = events.to(self.compute_dtype)
-            state = [tuple(s.to(self.compute_dtype) for s in st)
-                     for st in state]
+            state = _cast(state, self.compute_dtype)
+            if use_hyper:
+                gt_frames = gt_frames.to(self.compute_dtype)
         call = self._caller(train)
-        if train and self.scan_split:
+        if train and self.scan_split and not use_hyper:
             imgs, state = self._forward_split(call, events, state)
         else:
             outs = []
             for i in range(events.shape[1]):
-                out, state = call(events[:, i].permute(0, 3, 1, 2), state,
-                                  method="step")
+                args = (events[:, i].permute(0, 3, 1, 2), state)
+                if use_hyper:
+                    args += (gt_frames[:, i].permute(0, 3, 1, 2), hyper_beta)
+                out, state = call(*args, method="step")
                 outs.append(out["image"].permute(0, 2, 3, 1))
             imgs = torch.stack(outs, dim=1)
         return crop_from_multiple(imgs, hw).to(torch.float32), state
@@ -257,6 +274,13 @@ class ModelInterface:
         return dict(batch, flow=raft_flow(self.teacher, frames,
                                           cfg.temporal_consistency_L0,
                                           self.teacher_dtype))
+
+
+def _cast(state: Any, dtype: torch.dtype) -> Any:
+    """Every tensor of a nested list/tuple state in `dtype`."""
+    if torch.is_tensor(state):
+        return state.to(dtype)
+    return type(state)(_cast(s, dtype) for s in state)
 
 
 def aggregate_per_source(terms: Dict[str, Any],

@@ -86,17 +86,23 @@ def make_train_step(interface: ModelInterface,
                     sim_cfg: Optional[SimConfig] = None,
                     num_bins: int = 5, frames_per_bin: int = 1,
                     extra_frame: bool = False, extra_evs: bool = False):
-    """Build `step(batch, generator=None) -> (loss, aux)`. With `sim_cfg`
-    the batch follows the raw-video contract and `generator` (on the
-    interface's device) draws the simulator parameters and seeds. `aux`
+    """Build `step(batch, generator=None, hyper_beta=0.0) -> (loss, aux)`.
+    With `sim_cfg` the batch follows the raw-video contract and
+    `generator` (on the interface's device) draws the simulator
+    parameters and seeds. When the interface's `hyper_epochs` > 0 the
+    forward runs HyperE2VID's GT-mixing curriculum with `hyper_beta`.
+    BatchNorm running statistics are buffers: the forward updates them
+    in place, step after step, and the optimizer never sees them. `aux`
     holds the per-sample loss terms (B,), pred stats and grad_norm."""
     params = [p for p in interface.model.parameters() if p.requires_grad]
+    use_hyper = interface.hyper_epochs > 0
     if interface.loss_cfg.temporal_consistency_weight and \
             interface.loss_cfg.optical_flow_source.startswith("raft"):
         interface.teacher    # build the teacher before the first step
 
     def step(batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             hyper_beta: float = 0.0):
         if sim_cfg is not None:
             if generator is None:
                 raise ValueError("the simulator path needs a generator")
@@ -113,8 +119,10 @@ def make_train_step(interface: ModelInterface,
         state0 = interface.init_state(b, h, w)
         optimizer.zero_grad(set_to_none=True)
         with record_function("v2v.forward"):
-            pred, _ = interface.forward_sequence(batch["events"], state0,
-                                                 train=True)
+            pred, _ = interface.forward_sequence(
+                batch["events"], state0, train=True,
+                gt_frames=batch["frame"] if use_hyper else None,
+                hyper_beta=hyper_beta if use_hyper else None)
         with record_function("v2v.loss"):
             loss, aux = interface.calc_loss(pred, batch)
         with record_function("v2v.backward"):
