@@ -37,8 +37,14 @@ Phases, one line each, any failure exits non-zero:
      width, `--steps` steps at hyper_beta 1.0 (epoch 0 of hyper_epochs);
      K1 once a step, K4 once a time step (40 a step), BatchNorm running
      statistics that move
+ 14. the K5 experiment: v2v_tpu_torch/scripts/exp_sim_interleave.py at
+     its full workload (12 clips of 201 uint8 frames at 128x128, spp 1,
+     2 and 4, 50 chained launches a run); K5's launch count must equal
+     the runs' launches
 K4 (dynamic_shift_sum) is held against its plain version, values and
-gradients, after K3 (phase 5).
+gradients, after K3 (phase 5). K5 (simulate_interleave) is held against
+its plain version and against K1 with every pixel hot at K1's flagship
+shape, for spp 1, 2 and 4, after K1 (phase 4).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 v2v_tpu_torch package beside it, the script exits 2 and prints no result.
@@ -256,6 +262,22 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _cuda_ms_back_to_back(fn, reps: int) -> float:
+    """Milliseconds a call of `fn()` over `reps` calls between one pair of
+    CUDA events: the host enqueues ahead of the card, so its time between
+    calls is hidden, which `_cuda_ms`'s events around each call include."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _drifting_video(b, n, h, w, seed, device):
     """uint8 (B, N, H, W): a random texture per clip, drifting by a random
     sub-pixel velocity per frame, with slow global brightness changes."""
@@ -318,11 +340,13 @@ def _kernels():
     """Every kernel wrapper of the port, by the name the JSON line uses."""
     from v2v_tpu_torch.ops import attention as at
     from v2v_tpu_torch.ops import dynconv as dc
+    from v2v_tpu_torch.ops import sim_interleave as si
     from v2v_tpu_torch.ops import voxel_cuda as vc
     return {"simulate_batch": vc.simulate_batch,
             "sample_gaussian": vc.sample_gaussian,
             "attention": at.attention,
-            "dynamic_shift_sum": dc.dynamic_shift_sum}
+            "dynamic_shift_sum": dc.dynamic_shift_sum,
+            "simulate_interleave": si.simulate_interleave}
 
 
 def _zero_launches() -> None:
@@ -342,8 +366,9 @@ def _tf32(torch, on: bool):
 def phase_build():
     """One nvcc per CUDA source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from v2v_tpu_torch.ops import attention, dynconv, voxel_cuda
-    libs = (voxel_cuda.LIB, attention.LIB, dynconv.LIB)
+    from v2v_tpu_torch.ops import (attention, dynconv, sim_interleave,
+                                   voxel_cuda)
+    libs = (voxel_cuda.LIB, attention.LIB, dynconv.LIB, sim_interleave.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
         infos = list(pool.map(lambda lib: lib.build(verbose=True), libs))
     for lib, info in zip(libs, infos):
@@ -423,6 +448,107 @@ def phase_k1(torch, dev, seed):
             "replaces": "v2v_tpu/ops/voxel_pallas.py:172",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_k5(torch, dev, seed, k1_ms):
+    """K5 at K1's flagship shape, per-clip parameters and seeds from
+    `seed`: against its plain version for each spp the experiment runs
+    (equal bits on uint8, the flip budget on float32) and against K1 with
+    every pixel hot (fraction 2.0, std 0.05) in bfloat16 (equal bits);
+    the kernel timed per spp beside K1's time from [k1]."""
+    from v2v_tpu_torch.ops import sim_interleave as si
+    from v2v_tpu_torch.ops import voxel_cuda as vc
+    from v2v_tpu_torch.ops.voxel import SimParams, sample_sim_params
+    from v2v_tpu_torch.scripts.exp_sim_interleave import SPPS
+    from v2v_tpu_torch.training.train import sim_config_from_dataset
+    b, n, h, w = K1_SHAPE
+    sim_cfg = sim_config_from_dataset(FLAGSHIP_STAGE["dataset"]["train"][0])
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    video = _drifting_video(b, n, h, w, seed, dev)
+    prm = sample_sim_params(g, sim_cfg, b)
+    pos, neg, noise = prm.pos_thres, prm.neg_thres, prm.base_noise_std
+    seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=g, device=dev,
+                          dtype=torch.int32)
+    k1_prm = SimParams(pos, neg, noise, 2.0, si.HOT_STD)
+    k1 = vc.simulate_batch(video, seeds, k1_prm).to(torch.bfloat16)
+    worst = 0.0
+    for name, v in (("uint8", video), ("float32", video.float())):
+        want = si.simulate_interleave_plain(v, seeds, pos, neg, noise)
+        events = float(want.float().abs().mean())
+        _require(events > 0, f"K5 {name}: no events")
+        for spp in SPPS:
+            got = si.simulate_interleave(v, seeds, pos, neg, noise, spp=spp)
+            torch.cuda.synchronize()
+            _require(got.dtype == torch.bfloat16 and got.shape == want.shape,
+                     f"K5 {name} spp={spp}: {got.dtype} {tuple(got.shape)}")
+            _require(bool(torch.isfinite(got).all()),
+                     f"K5 {name} spp={spp}: non-finite")
+            dmax, rate = _counts_diff(got.float(), want.float())
+            _log(f"[k5] {name} spp={spp}: shape {tuple(got.shape)} "
+                 f"mean|events| {events:.4f} max|diff| {dmax} mismatch rate "
+                 f"{rate:.2e}")
+            if name == "uint8":
+                _require(torch.equal(got, want),
+                         f"K5 uint8 spp={spp}: bits differ from the plain "
+                         f"version")
+                _require(torch.equal(got, k1),
+                         f"K5 uint8 spp={spp}: bits differ from K1 with "
+                         f"every pixel hot")
+            _require(dmax <= 1.0 and rate <= FLIP_RATE,
+                     f"K5 {name} spp={spp}: beyond the flip budget")
+            worst = max(worst, dmax)
+    _log(f"[k5] uint8: equal bits with K1 (hot fraction 2.0, hot std "
+         f"{si.HOT_STD}) in bfloat16 for spp {list(SPPS)}")
+    k5 = {spp: (lambda s=spp: si.simulate_interleave(
+        video, seeds, pos, neg, noise, spp=s)) for spp in SPPS}
+    ms = {spp: _cuda_ms(fn, 20) for spp, fn in k5.items()}
+    b2b = {spp: _cuda_ms_back_to_back(fn, 20) for spp, fn in k5.items()}
+    k1_b2b = _cuda_ms_back_to_back(
+        lambda: vc.simulate_batch(video, seeds, k1_prm), 20)
+    plain_ms = _cuda_ms(lambda: si.simulate_interleave_plain(
+        video, seeds, pos, neg, noise), 3, warmup=1)
+    px_frames = b * (n - 1) * h * w
+    bytes_ = b * n * h * w + px_frames * 2
+    bound_ms, bound_by = _bound(bytes_, K1_FLOPS_NOISY * px_frames)
+    _log(f"[k5] flagship uint8: kernel " + ", ".join(
+        f"spp={s} {t:.4f} ms ({b / (t / 1e3):.0f} clips/s)"
+        for s, t in ms.items())
+        + f"; K1 (float32 out) {k1_ms:.4f} ms; plain {plain_ms:.2f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {bytes_ / 1e6:.1f} MB)")
+    _log(f"[k5] back to back, 20 calls: " + ", ".join(
+        f"spp={s} {t:.4f} ms" for s, t in b2b.items())
+        + f"; K1 {k1_b2b:.4f} ms")
+    return {"name": "simulate_interleave", "route": "cuda",
+            "source": "v2v_tpu_torch/csrc/sim_interleave.cu",
+            "replaces": "scripts/exp_sim_interleave.py:78",
+            "max_abs_err": worst, "ms": ms[1], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "ms_by_spp": ms, "back_to_back_ms_by_spp": b2b,
+            "k1_back_to_back_ms": k1_b2b}
+
+
+def phase_sim_interleave(torch, dev):
+    """The K5 experiment's path: the port's script at its full workload
+    (v2v_tpu_torch/scripts/exp_sim_interleave.py); K5 must launch as
+    many times as the script's chained runs."""
+    from v2v_tpu_torch.scripts import exp_sim_interleave as exp
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    rates = exp.run(dev)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    want = len(exp.SPPS) * (exp.REPEATS + 1) * exp.ITERS
+    _require(launches["simulate_interleave"] == want,
+             f"sim-interleave: K5 launched "
+             f"{launches['simulate_interleave']} times, want {want}")
+    _require(all(r > 0 and math.isfinite(r) for r in rates.values()),
+             f"sim-interleave: rates {rates}")
+    _log(f"[sim-interleave] B={exp.B} N={exp.N} {exp.H}x{exp.W} uint8, "
+         f"{exp.ITERS} chained launches a run, median of {exp.REPEATS}: "
+         + ", ".join(f"spp={s} {r:.0f} clips/s" for s, r in rates.items())
+         + f"; {wall:.1f} s; launches {launches}")
+    return launches
 
 
 def phase_k3(torch, dev, seed):
@@ -966,6 +1092,7 @@ def main(argv=None) -> int:
         phase_build()
         k2 = phase_k2(torch, dev, args.seed)
         k1 = phase_k1(torch, dev, args.seed)
+        k5 = phase_k5(torch, dev, args.seed, k1["ms"])
         k3 = phase_k3(torch, dev, args.seed)
         k4 = phase_k4(torch, dev, args.seed)
         phase_reference(torch, dev, args.seed)
@@ -990,6 +1117,7 @@ def main(argv=None) -> int:
             torch, dev, args.seed, args.steps, args.profile,
             HYPER_TRAIN_MODULE, HYPER_TRAIN_STAGE, HYPER_PARAMS,
             "hyper-train", HYPER_BETA)
+        paths["sim-interleave"] = phase_sim_interleave(torch, dev)
     except Exception as e:   # every phase failure ends the run non-zero
         import traceback
         traceback.print_exc()
@@ -997,13 +1125,14 @@ def main(argv=None) -> int:
         return 1
     # launches of each kernel on the main paths, each counted from 0 just
     # before its path ran
-    for rec in (k1, k2, k3, k4):
+    kernels = [k1, k2, k3, k4, k5]
+    for rec in kernels:
         by_path = {p: n[rec["name"]] for p, n in paths.items()
                    if n[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         _log(f"[launches] {rec['name']}: {rec['launches']} {by_path}")
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,11 @@
 // What bounds it: K1 reads the video once and writes the counts once.
 // At the flagship shape (B=12, N=201, 128x128, uint8 in, float32 out)
 // that is 39.5 MB + 157.3 MB = 196.8 MB, about 59 us at 3.35 TB/s. The
-// arithmetic per pixel and frame (a Philox draw, a table lookup, two
-// IEEE divisions) is small beside that, so the bound is bytes.
+// float32 arithmetic per pixel and frame is small beside that, so the
+// roofline bound is bytes. On an H100 it runs at about 0.5 TB/s: K5
+// (sim_interleave.cu), the same chain writing bfloat16 counts, takes a
+// third less time back to back, and the rest goes to issuing the Philox
+// draw's integer rounds (PERF.md).
 //
 // Design: one thread per pixel (b, y, x) walks frames 1..N-1 with the
 // membrane potential, the previous log frame and the hot-pixel noise in
@@ -20,34 +23,16 @@
 //
 // Rounding: build with -fmad=false (no FMA contraction of the potential
 // update, which the plain version runs as separate ops) and never with
-// --use_fast_math (floorf(pot / theta) needs IEEE division). uint8 video
-// reads its log value from a 256-entry table that the wrapper computes
-// with the plain version's own expression, so the log values are the
-// same bits in both versions.
+// --use_fast_math (floorf(pot / theta) needs IEEE division); the log
+// values and the quantization are esim.cuh's, shared with K5.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "esim.cuh"
 #include "philox.cuh"
 
 namespace {
-
-__device__ __forceinline__ float log_intensity(float v) {
-  // log(0.001 + reverse_gamma(v) / 255), the reference form with the
-  // x255 / 255 round trip (v2v_tpu/ops/voxel.py:32-34, :94)
-  float x = v / 255.0f;
-  x = powf(x, 2.2f);
-  x = x * 255.0f;
-  x = x / 255.0f;
-  return logf(0.001f + x);
-}
-
-template <bool kU8>
-__device__ __forceinline__ float load_log(const void* video, size_t i,
-                                          const float* table) {
-  if (kU8) return table[static_cast<const uint8_t*>(video)[i]];
-  return log_intensity(static_cast<const float*>(video)[i]);
-}
 
 template <bool kU8, bool kNoise>
 __global__ void esim_kernel(const void* __restrict__ video,
@@ -86,10 +71,10 @@ __global__ void esim_kernel(const void* __restrict__ video,
 
   const size_t in_base = static_cast<size_t>(b) * N * HW + p;
   const size_t out_base = static_cast<size_t>(b) * (N - 1) * HW + p;
-  float log_prev = load_log<kU8>(video, in_base, table);
+  float log_prev = v2v::load_log<kU8>(video, in_base, table);
   for (int i = 1; i < N; ++i) {
-    const float log_new =
-        load_log<kU8>(video, in_base + static_cast<size_t>(i) * HW, table);
+    const float log_new = v2v::load_log<kU8>(
+        video, in_base + static_cast<size_t>(i) * HW, table);
     pot = pot + (log_new - log_prev);
     if (kNoise) {
       const float g = v2v::irwin_hall_gaussian(
@@ -97,10 +82,8 @@ __global__ void esim_kernel(const void* __restrict__ video,
       pot = pot + std_b * g;
       pot = pot + hot;
     }
-    const float pos_ev = pot >= tp ? floorf(pot / tp) : 0.0f;
-    const float neg_ev = pot <= -tn ? floorf(-pot / tn) : 0.0f;
-    pot = pot - pos_ev * tp + neg_ev * tn;
-    out[out_base + static_cast<size_t>(i - 1) * HW] = pos_ev - neg_ev;
+    out[out_base + static_cast<size_t>(i - 1) * HW] =
+        v2v::quantize_events(pot, tp, tn);
     log_prev = log_new;
   }
 }

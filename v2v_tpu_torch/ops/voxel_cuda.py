@@ -45,7 +45,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 # -fmad=false: the plain versions run separate multiplies and adds
-LIB = CudaLibrary("esim.cu", headers=("philox.cuh",),
+LIB = CudaLibrary("esim.cu", headers=("esim.cuh", "philox.cuh"),
                   extra_flags=("-fmad=false",), bind=_bind)
 _load = LIB.get
 
