@@ -11,9 +11,13 @@ Phases, one line each, any failure exits non-zero:
   4. K1 (simulate_batch) against its plain version at the flagship shape
      (12, 201, 128, 128): uint8 and float32 video, noise-free and noisy,
      and a 180x240 crop; then both timed with CUDA events
-  5. K3 (attention) against its plain version at ETNet's 720p shape
-     (1, 8, 14400, 32) and at a ragged 5001 tokens (TF32 off); kernel,
-     plain version and scaled_dot_product_attention timed
+  5. K3 (attention) against its plain version (TF32 off) at ETNet's 720p
+     shape (1, 8, 14400, 32), at a ragged 5001 tokens, with 50 keys (fewer
+     than one key tile) and at (2, 8, 300, 32) against 777 keys; its
+     registers, shared memory and spills from ptxas, and its HGMMA
+     (tensor-core) and UTMALDG (TMA) instructions counted in its SASS;
+     kernel (per call and back to back), plain version and float32
+     scaled_dot_product_attention timed beside the bound terms
   6. reference check: a small train step on the card equals the same
      step on the CPU (float32, TF32 off)
   7. the train slice: the flagship config (configs/train_v2v_e2vid_10k.
@@ -55,6 +59,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -198,11 +203,14 @@ EVAL_EVENTS_PER_FRAME = 400_000
 # K3 launches per ETNet frame: 3 streams x (3 encoder self-attentions +
 # 2 decoder layers x (self + cross))
 K3_PER_FRAME = 21
-# K3's shapes: ETNet at 720p (B, heads, 90*160 tokens, dh), and a token
-# count that is not a multiple of the kernel's tiles
-K3_SHAPES = ((1, 8, 14400, 32), (1, 8, 5001, 32))
-# |K3 - plain| on unit-normal q, k, v: float32 sums over 14,400 keys in
-# another order, and the scale folded into the exponent
+# K3's shapes, (q shape, Nk): ETNet at 720p (B, heads, 90*160 tokens, dh),
+# a token count that is not a multiple of the kernel's tiles, fewer keys
+# than one key tile, and B*h = 16 with ragged Nq and Nk (cross attention)
+K3_SHAPES = (((1, 8, 14400, 32), 14400), ((1, 8, 5001, 32), 5001),
+             ((1, 8, 14400, 32), 50), ((2, 8, 300, 32), 777))
+# |K3 - plain| on unit-normal q, k, v: the kernel's three TF32 passes keep
+# float32 accuracy (csrc/attention.cu); float32 sums over up to 14,400
+# keys in another order, and the scale folded into the exponent
 K3_ATOL = 1e-5
 # card (cuDNN, K3 or K4) against CPU (oneDNN, the plain versions) on the
 # full-width ETNet or HyperE2VID in float32 with TF32 off, over 3
@@ -219,9 +227,12 @@ FLAGSHIP_PARAMS = 10_710_401
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# dense TF32 tensor-core FLOP/s (a yardstick for K3; the kernel runs on
-# the float32 CUDA cores)
+# dense TF32 tensor-core FLOP/s: K3 runs its products there, in three
+# passes for float32 accuracy
 TF32_FLOPS = 495e12
+# K3's exponentials go to the special-function units: 16 a clock on each
+# of the 132 SMs, at the 1.98 GHz boost clock
+EXP_PER_S = 16 * 132 * 1.98e9
 # float32 operations per simulated pixel and frame, counted from
 # csrc/esim.cu: log diff and add (2), quantization (2 divisions, 2
 # multiplies, 2 adds), noise (Irwin-Hall 2, scale 1, two adds 2); the
@@ -305,11 +316,42 @@ def _drifting_video(b, n, h, w, seed, device):
     return torch.stack(frames).round().to(torch.uint8)
 
 
-def _bound(bytes_: int, flops: int):
+def _clocks_while(fn, seconds: float = 1.0):
+    """Runs fn() back to back for about `seconds` while nvidia-smi samples
+    the SM clock (MHz) and power draw (W) every 20 ms; returns the median
+    clock and the highest draw, or None where nvidia-smi gave nothing."""
+    import torch
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)          # nvidia-smi's own start
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    samples = []
+    for line in out.splitlines()[-int(seconds / 0.02):]:
+        try:
+            samples.append(tuple(float(x) for x in line.split(",")))
+        except ValueError:
+            pass
+    if not samples:
+        return None, None
+    return (statistics.median(c for c, _ in samples),
+            max(p for _, p in samples))
+
+
+def _bound(bytes_: int, flops: int, flops_per_s: float = F32_FLOPS):
     """Least time on the card (ms) and what sets it: each input read and
-    each output written once at the HBM rate, or the float32 operations
-    at the float32 rate."""
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
+    each output written once at the HBM rate, or the operations at their
+    type's rate (default float32 outside the tensor cores)."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -363,8 +405,9 @@ def _tf32(torch, on: bool):
     torch.backends.cuda.matmul.allow_tf32 = on
 
 
-def phase_build():
-    """One nvcc per CUDA source, all started together."""
+def phase_build() -> dict:
+    """One nvcc per CUDA source, all started together; returns each
+    build's {'path', 'seconds', 'log'} by source name."""
     from concurrent.futures import ThreadPoolExecutor
     from v2v_tpu_torch.ops import (attention, dynconv, sim_interleave,
                                    voxel_cuda)
@@ -377,6 +420,7 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 _log(f"[build]   {line.strip()}")
+    return {lib.source: info for lib, info in zip(libs, infos)}
 
 
 def phase_k2(torch, dev, seed):
@@ -551,48 +595,101 @@ def phase_sim_interleave(torch, dev):
     return launches
 
 
-def phase_k3(torch, dev, seed):
-    """K3 against its plain version on the same tensors, TF32 off (the
-    plain version's matmuls would be TF32-accurate otherwise)."""
+def _k3_build_report(build: dict) -> dict:
+    """attention.cu's ptxas report (registers, shared memory, spills of
+    each kernel) and its tensor-core (HGMMA) and TMA (UTMALDG) SASS
+    instructions, counted with cuobjdump in the built library."""
     from v2v_tpu_torch.ops import attention as at
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(build["path"])],
+                          capture_output=True, text=True, timeout=120)
+    _require(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+    counts = {op: sum(1 for line in sass.stdout.splitlines()
+                      if f" {op}" in line)
+              for op in ("HGMMA", "UTMALDG")}
+    lines = [line.strip() for line in build["log"].splitlines()
+             if any(w in line for w in ("registers", "spill", "smem",
+                                        "warning", "entry function"))]
+    for line in lines:
+        _log(f"[k3] ptxas: {line}")
+    spills = [line for line in lines if "spill" in line]
+    _log(f"[k3] SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG; "
+         f"dynamic shared memory {at.LIB.get().v2v_attention_smem_bytes()} "
+         f"B a block" + ("" if lines else " (library cached: no ptxas "
+                                         "report)"))
+    _require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+             "K3: no tensor-core or TMA instructions in its SASS")
+    _require(all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                 for line in spills), "K3: registers spill")
+    return counts
+
+
+def phase_k3(torch, dev, seed, build):
+    """K3 against its plain version on the same tensors, TF32 off (the
+    plain version's matmuls would be TF32-accurate otherwise), at every
+    shape of K3_SHAPES; its build and SASS report; kernel, plain version
+    and float32 SDPA timed at the 720p shape beside the bound terms."""
+    from v2v_tpu_torch.ops import attention as at
+    sass = _k3_build_report(build)
     _tf32(torch, False)
     g = torch.Generator(device=dev).manual_seed(seed)
     worst = 0.0
-    for shape in K3_SHAPES:
-        q, k, v = (torch.randn(shape, generator=g, device=dev)
-                   for _ in range(3))
+    for shape, nk in K3_SHAPES:
+        q = torch.randn(shape, generator=g, device=dev)
+        k, v = (torch.randn(shape[:2] + (nk, shape[3]), generator=g,
+                            device=dev) for _ in range(2))
         got = at.attention(q, k, v)
         want = at.attention_plain(q, k, v)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        _log(f"[k3] {shape}: max|diff| {err:.3e} (tolerance {K3_ATOL}), "
-             f"max|out| {float(want.abs().max()):.4f}")
+        _log(f"[k3] q {shape} x {nk} keys: max|diff| {err:.3e} (tolerance "
+             f"{K3_ATOL}), max|out| {float(want.abs().max()):.4f}")
         _require(bool(torch.isfinite(got).all()), f"K3 {shape}: non-finite")
-        _require(err <= K3_ATOL, f"K3 {shape}: beyond the tolerance")
+        _require(err <= K3_ATOL, f"K3 {shape} x {nk}: beyond the tolerance")
         worst = max(worst, err)
-    q, k, v = (torch.randn(K3_SHAPES[0], generator=g, device=dev)
+    (b, h, n, dh), nk = K3_SHAPES[0]
+    q, k, v = (torch.randn((b, h, n, dh), generator=g, device=dev)
                for _ in range(3))
     ms = _cuda_ms(lambda: at.attention(q, k, v), 20)
+    b2b_ms = _cuda_ms_back_to_back(lambda: at.attention(q, k, v), 20)
     plain_ms = _cuda_ms(lambda: at.attention_plain(q, k, v), 3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = _cuda_ms(lambda: sdpa(q, k, v), 20)
-    b, h, n, dh = K3_SHAPES[0]
-    flops = 4 * b * h * n * n * dh
-    bytes_ = 4 * b * h * n * dh * 4
-    bound_ms, bound_by = _bound(bytes_, flops)
-    _log(f"[k3] {K3_SHAPES[0]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-         f"ms, scaled_dot_product_attention (float32) {library_ms:.4f} ms; "
-         f"{flops:.4g} FLOP, {bytes_ / 1e6:.1f} MB; bound at the float32 "
-         f"CUDA-core rate {bound_ms:.4f} ms ({bound_by}), at the dense TF32 "
-         f"tensor-core rate {flops / TF32_FLOPS * 1e3:.4f} ms; "
-         f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s achieved")
+    library_b2b_ms = _cuda_ms_back_to_back(lambda: sdpa(q, k, v), 20)
+    clock_mhz, power_w = _clocks_while(lambda: at.attention(q, k, v))
+    flops = 4 * b * h * n * nk * dh
+    bytes_ = 4 * b * h * (2 * n + 2 * nk) * dh
+    bound_ms, bound_by = _bound(bytes_, 3 * flops, TF32_FLOPS)
+    terms = {"tf32_3_pass": 3 * flops / TF32_FLOPS * 1e3,
+             "tf32_1_pass": flops / TF32_FLOPS * 1e3,
+             "exponentials": b * h * n * nk / EXP_PER_S * 1e3,
+             "float32_cuda_cores": flops / F32_FLOPS * 1e3,
+             "bytes": bytes_ / HBM_BYTES_PER_S * 1e3}
+    _log(f"[k3] {(b, h, n, dh)}: kernel {ms:.4f} ms a call, {b2b_ms:.4f} "
+         f"ms back to back (20 calls); plain {plain_ms:.4f} ms; "
+         f"scaled_dot_product_attention (float32) {library_ms:.4f} ms a "
+         f"call, {library_b2b_ms:.4f} ms back to back; "
+         f"{flops / (b2b_ms / 1e3) / 1e12:.1f} TFLOP/s of the function "
+         f"achieved")
+    _log(f"[k3] bound terms (ms): 3-pass TF32 {terms['tf32_3_pass']:.4f} "
+         f"(the bound: {3 * flops:.4g} FLOP), 1-pass TF32 "
+         f"{terms['tf32_1_pass']:.4f}, exponentials "
+         f"{terms['exponentials']:.4f} ({b * h * n * nk:.4g}), float32 "
+         f"CUDA cores {terms['float32_cuda_cores']:.4f}, bytes "
+         f"{terms['bytes']:.4f} ({bytes_ / 1e6:.1f} MB)")
+    _log(f"[k3] under 1 s of back-to-back calls: SM clock median "
+         f"{clock_mhz} MHz, power draw up to {power_w} W (nvidia-smi every "
+         f"20 ms)")
     _tf32(torch, True)
     return {"name": "attention", "route": "cuda",
             "source": "v2v_tpu_torch/csrc/attention.cu",
             "replaces": "v2v_tpu/models/eitr.py:42",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "back_to_back_ms": b2b_ms,
+            "library_back_to_back_ms": library_b2b_ms,
+            "bound_terms_ms": terms, "sass": sass,
+            "sm_clock_mhz": clock_mhz, "power_draw_w": power_w}
 
 
 def _shift_sum_bound(z, atoms):
@@ -1089,11 +1186,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     try:
         phase_device(torch)
-        phase_build()
+        builds = phase_build()
         k2 = phase_k2(torch, dev, args.seed)
         k1 = phase_k1(torch, dev, args.seed)
         k5 = phase_k5(torch, dev, args.seed, k1["ms"])
-        k3 = phase_k3(torch, dev, args.seed)
+        k3 = phase_k3(torch, dev, args.seed, builds["attention.cu"])
         k4 = phase_k4(torch, dev, args.seed)
         phase_reference(torch, dev, args.seed)
         paths = {"slice": phase_slice(torch, dev, args.seed, args.steps,

@@ -175,7 +175,10 @@ def test_k3_matches_plain_on_card():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    for shape, nk in (((1, 8, 5001, 32), 5001), ((2, 3, 300, 32), 777)):
+    # ragged Nq and Nk, cross attention, fewer keys than one key tile
+    # (64), Nq not a multiple of 64, B*h = 16
+    for shape, nk in (((1, 8, 5001, 32), 5001), ((2, 3, 300, 32), 777),
+                      ((1, 8, 1000, 32), 50), ((2, 8, 300, 32), 777)):
         q = torch.randn(shape, generator=g, device=dev)
         k, v = (torch.randn(shape[:2] + (nk, 32), generator=g, device=dev)
                 for _ in range(2))
