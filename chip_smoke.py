@@ -6,7 +6,8 @@
 Phases, one line each, any failure exits non-zero:
   1. device: nvidia-smi name and power limit, torch/CUDA versions, TF32
   2. build: nvcc builds the CUDA kernels from v2v_tpu_torch/csrc, one
-     process per source, all at once
+     process per source, all at once, and prints each kernel's registers
+     and spills
   3. K2 (sample_gaussian) against its plain version: equal bits
   4. K1 (simulate_batch) against its plain version at the flagship shape
      (12, 201, 128, 128): uint8 and float32 video, noise-free and noisy,
@@ -36,17 +37,21 @@ Phases, one line each, any failure exits non-zero:
      through run_test on the same two synthetic 720x1280 sequences; K4
      must launch once a frame
  12. hyper reference: a small float32 HyperE2VID train step with the
-     GT-mixing curriculum, card against CPU
+     GT-mixing curriculum, card (K4 and its gradient kernels) against CPU
+     (plain loops)
  13. the hyper train slice: configs/train_v2v_hyper_10k.yaml at full
      width, `--steps` steps at hyper_beta 1.0 (epoch 0 of hyper_epochs);
-     K1 once a step, K4 once a time step (40 a step), BatchNorm running
-     statistics that move
+     K1 once a step, K4 and its gradient once a time step each (40 a
+     step), BatchNorm running statistics that move
  14. the K5 experiment: v2v_tpu_torch/scripts/exp_sim_interleave.py at
      its full workload (12 clips of 201 uint8 frames at 128x128, spp 1,
      2 and 4, 50 chained launches a run); K5's launch count must equal
      the runs' launches
 K4 (dynamic_shift_sum) is held against its plain version, values and
-gradients, after K3 (phase 5). K5 (simulate_interleave) is held against
+gradients, after K3 (phase 5); its gradient (dynamic_shift_sum_backward,
+csrc/dynconv_bwd.cu) is held against the plain backward at the train,
+a ragged and a two-chunk shape, with equal bits across two calls, and
+timed beside the plain backward. K5 (simulate_interleave) is held against
 its plain version and against K1 with every pixel hot at K1's flagship
 shape, for spp 1, 2 and 4, after K1 (phase 4).
 The line before the last is the kernels' JSON record; the last line is
@@ -59,6 +64,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -189,9 +195,15 @@ HYPER_BETA = 1.0
 K4_SHAPES = (((1, 180, 320, 6, 128), "float32"),
              ((12, 32, 32, 6, 128), "bfloat16"),
              ((2, 37, 53, 6, 97), "float32"))
+# K4's gradient: the train step's shape in bfloat16, a ragged shape with
+# odd CO, and CO = 256, two channel chunks in the datoms kernel
+K4_BWD_SHAPES = (((12, 32, 32, 6, 128), "bfloat16"),
+                 ((2, 37, 53, 6, 97), "float32"),
+                 ((2, 16, 24, 6, 256), "float32"))
 # |K4 - plain| on unit-normal z and atoms (|out| up to ~60): float32 sums
 # of 150 products in another order (fused multiply-adds, m before the
-# offsets)
+# offsets). Its gradients too: datoms sums CO products (|datoms| up to
+# ~80 at CO = 256), dz 25 (up to ~30), in other orders
 K4_ATOL = 1e-4
 
 # EVAID's frame size; frames per sequence in the eval slice (the config's
@@ -388,6 +400,7 @@ def _kernels():
             "sample_gaussian": vc.sample_gaussian,
             "attention": at.attention,
             "dynamic_shift_sum": dc.dynamic_shift_sum,
+            "dynamic_shift_sum_backward": dc.dynamic_shift_sum_backward,
             "simulate_interleave": si.simulate_interleave}
 
 
@@ -411,16 +424,65 @@ def phase_build() -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from v2v_tpu_torch.ops import (attention, dynconv, sim_interleave,
                                    voxel_cuda)
-    libs = (voxel_cuda.LIB, attention.LIB, dynconv.LIB, sim_interleave.LIB)
+    libs = (voxel_cuda.LIB, attention.LIB, dynconv.LIB, dynconv.LIB_BWD,
+            sim_interleave.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
         infos = list(pool.map(lambda lib: lib.build(verbose=True), libs))
     for lib, info in zip(libs, infos):
         _log(f"[build] {info['path'].name} in {info['seconds']:.1f} s "
              f"(nvcc {' '.join(lib.flags)})")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"[build]   {line.strip()}")
+        for line in _ptxas_summary(info["log"]):
+            _log(f"[build]   {line}")
     return {lib.source: info for lib, info in zip(libs, infos)}
+
+
+def _ptxas_summary(log: str) -> list:
+    """One line per kernel of an `nvcc -Xptxas -v` log: its name
+    (demangled by the toolkit's cu++filt, without its parameters),
+    registers and spill bytes."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"entry function '(\S+)'", line):
+            name = m.group(1)
+            kernels[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            kernels[name]["spills"] = f"{m.group(1)} B spill stores, " \
+                                      f"{m.group(2)} B spill loads"
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[name]["registers"] = int(m.group(1))
+    names = list(kernels)
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        out = subprocess.run([filt], input="\n".join(names), text=True,
+                             capture_output=True, timeout=60).stdout
+        shown = out.splitlines() if len(out.splitlines()) == len(names) \
+            else names
+    except OSError:
+        shown = names
+    return [f"{_kernel_name(full)}: {k.get('registers')} registers, "
+            f"{k.get('spills')}" for full, k in zip(shown, kernels.values())]
+
+
+def _kernel_name(demangled: str) -> str:
+    """A demangled kernel's name with its template arguments, without its
+    return type, anonymous namespace or parameters."""
+    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "",
+                  demangled)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def _csrc_kernels() -> set:
+    """The names of the `__global__` functions in v2v_tpu_torch/csrc."""
+    from v2v_tpu_torch.ops._build import CSRC
+    return {name for path in CSRC.glob("*.cu") for name in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+        path.read_text())}
 
 
 def phase_k2(torch, dev, seed):
@@ -703,9 +765,9 @@ def _shift_sum_bound(z, atoms):
 
 def phase_k4(torch, dev, seed):
     """K4 against its plain version on the same tensors at the eval, train
-    and ragged shapes, TF32 off; _ShiftSum's gradients at the train shape
-    against autograd through the plain loop; both timed at the two path
-    shapes."""
+    and ragged shapes, TF32 off; _ShiftSum's gradients (its backward
+    kernels) at the train shape against autograd through the plain loop;
+    K4 timed at the two path shapes."""
     from v2v_tpu_torch.ops import dynconv as dc
     _tf32(torch, False)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -727,14 +789,18 @@ def phase_k4(torch, dev, seed):
         _require(err <= K4_ATOL, f"K4 {shape}: beyond the tolerance")
         worst = max(worst, err)
         inputs.append((z, atoms))
-    # gradients at the train shape (bfloat16 z): dz is a float32 sum
-    # rounded once to bfloat16 (half an ulp, 2^-8 relative), datoms is
-    # float32 against autograd on the same values widened to float32
+    # gradients at the train shape (bfloat16 z), through the backward
+    # kernels: dz is a float32 sum rounded once to bfloat16 (half an ulp,
+    # 2^-8 relative), datoms is float32 against autograd on the same
+    # values widened to float32
     z, atoms = inputs[1]
     cot = torch.randn(z.shape[:3] + z.shape[4:], generator=g, device=dev)
     zk = z.detach().requires_grad_()
     ak = atoms.detach().requires_grad_()
+    before = dc.dynamic_shift_sum_backward.launches
     dc.dynamic_shift_sum(zk, ak, 5).backward(cot)
+    _require(dc.dynamic_shift_sum_backward.launches == before + 1,
+             "K4: the gradient did not go through its kernels")
     zp = z.detach().to(torch.float32).requires_grad_()
     ap = atoms.detach().requires_grad_()
     dc.dynamic_shift_sum_plain(zp, ap, 5).backward(cot)
@@ -770,6 +836,84 @@ def phase_k4(torch, dev, seed):
                             "bound_ms": train[2], "bound_by": train[3]}}
 
 
+def _shift_sum_bwd_bound(z, atoms):
+    """K4's gradient's least time: z, atoms and g read once, dz (z's type)
+    and datoms (float32) written once; 2 operations per multiply-add,
+    k*k*M of them per (pixel, channel) for dz and as many for datoms."""
+    b, h, w, m, co = z.shape
+    bytes_ = (2 * (z.numel() * z.element_size() + atoms.numel() * 4)
+              + b * h * w * co * 4)
+    flops = 2 * 2 * atoms.shape[-1] * m * b * h * w * co
+    return _bound(bytes_, flops), bytes_
+
+
+def phase_k4_backward(torch, dev, seed):
+    """K4's gradient kernels (csrc/dynconv_bwd.cu) against the plain
+    backward on the same tensors, TF32 off, at K4_BWD_SHAPES, with the
+    cotangent as the model hands it back (an NCHW tensor's (B,H,W,CO)
+    view). datoms and float32 dz within K4_ATOL; bfloat16 dz, one rounding
+    of a float32 sum, within K4_ATOL + 2^-8 |ref| of the plain backward on
+    z widened to float32 (the record's max_abs_err takes that excess for
+    bfloat16 dz). Two calls give equal bits. Timed at the train shape, a
+    call and back to back, beside the plain backward and the bound."""
+    from v2v_tpu_torch.ops import dynconv as dc
+    _tf32(torch, False)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    worst, train = 0.0, None
+    for shape, dtype in K4_BWD_SHAPES:
+        z = torch.randn(shape, generator=g, device=dev).to(
+            getattr(torch, dtype))
+        atoms = torch.randn(shape[:4] + (25,), generator=g, device=dev)
+        cot = torch.randn((shape[0], shape[4]) + shape[1:3], generator=g,
+                          device=dev).permute(0, 2, 3, 1)
+        dz, da = dc.dynamic_shift_sum_backward(z, atoms, cot, 5)
+        dz2, da2 = dc.dynamic_shift_sum_backward(z, atoms, cot, 5)
+        ref_dz, ref_da = dc.dynamic_shift_sum_backward_plain(
+            z.float(), atoms, cot, 5)
+        torch.cuda.synchronize()
+        _require(dz.dtype == z.dtype and dz.shape == z.shape
+                 and da.dtype == torch.float32 and da.shape == atoms.shape,
+                 f"K4 backward {shape}: dz {dz.dtype} {tuple(dz.shape)}, "
+                 f"datoms {da.dtype} {tuple(da.shape)}")
+        _require(bool(torch.isfinite(dz).all() and torch.isfinite(da).all()),
+                 f"K4 backward {shape}: non-finite")
+        same = torch.equal(dz, dz2) and torch.equal(da, da2)
+        rel = 2 ** -8 if z.dtype == torch.bfloat16 else 0.0
+        dz_err = float(((dz.float() - ref_dz).abs()
+                        - rel * ref_dz.abs()).max())
+        da_err = float((da - ref_da).abs().max())
+        _log(f"[k4] backward z {shape} {dtype}: max|datoms - ref| "
+             f"{da_err:.3e}, max(|dz - ref|" + (" - 2^-8 |ref|" if rel else "")
+             + f") {dz_err:.3e} (tolerance {K4_ATOL}); max|datoms| "
+             f"{float(ref_da.abs().max()):.3f}, max|dz| "
+             f"{float(ref_dz.abs().max()):.3f}; two calls equal bits: {same}")
+        _require(same, f"K4 backward {shape}: two calls differ")
+        _require(dz_err <= K4_ATOL and da_err <= K4_ATOL,
+                 f"K4 backward {shape}: beyond the tolerance")
+        worst = max(worst, da_err, dz_err)
+        if train is None:
+            train = (z, atoms, cot)
+    z, atoms, cot = train
+    ms = _cuda_ms(lambda: dc.dynamic_shift_sum_backward(z, atoms, cot, 5), 20)
+    b2b_ms = _cuda_ms_back_to_back(
+        lambda: dc.dynamic_shift_sum_backward(z, atoms, cot, 5), 20)
+    plain_ms = _cuda_ms(lambda: dc.dynamic_shift_sum_backward_plain(
+        z, atoms, cot, 5), 5, warmup=1)
+    (bound_ms, bound_by), bytes_ = _shift_sum_bwd_bound(z, atoms)
+    _log(f"[k4] backward z {tuple(z.shape)} {str(z.dtype)[6:]}: kernels "
+         f"{ms:.4f} ms a call, {b2b_ms:.4f} ms back to back (20 calls); "
+         f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+         f"{bytes_ / 1e6:.1f} MB); {bytes_ / (b2b_ms / 1e3) / 1e12:.2f} TB/s "
+         f"achieved back to back")
+    _tf32(torch, True)
+    return {"name": "dynamic_shift_sum_backward", "route": "cuda",
+            "source": "v2v_tpu_torch/csrc/dynconv_bwd.cu",
+            "replaces": "v2v_tpu/ops/dynconv.py:118",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "back_to_back_ms": b2b_ms}
+
+
 def _tiny_module(l0: int, module=None):
     mod = json.loads(json.dumps(module or FLAGSHIP_MODULE))
     mod["loss"]["temporal_consistency_L0"] = l0
@@ -784,9 +928,9 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
     """One float32 train step of a slice (its loss, a tiny model, 64 px)
     on the card against the same step on the CPU, same weights and
     voxels: the CPU path is the one the tier-1 tests hold against JAX.
-    With `hyper_beta` the HyperE2VID curriculum runs, K4 must launch once
-    a time step on the card, and the BatchNorm running statistics (in
-    the state_dict) must agree too."""
+    With `hyper_beta` the HyperE2VID curriculum runs, K4 and its gradient
+    must launch once a time step each on the card, and the BatchNorm
+    running statistics (in the state_dict) must agree too."""
     import copy
     from v2v_tpu_torch.losses.lpips import LPIPS
     from v2v_tpu_torch.ops.voxel import SimConfig
@@ -822,12 +966,16 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
         runs.append((float(loss), float(aux["grad_norm"]),
                      {k: v.detach().to(cpu)
                       for k, v in iface.model.state_dict().items()},
-                     _read_launches()["dynamic_shift_sum"]))
-    (lc, gc, pc, kc), (lh, gh, ph, kh) = runs
+                     _read_launches()))
+    (lc, gc, pc, nc), (lh, gh, ph, nh) = runs
+    # (card, CPU) launches of K4 and of its gradient
+    fwd = [n["dynamic_shift_sum"] for n in (nc, nh)]
+    bwd = [n["dynamic_shift_sum_backward"] for n in (nc, nh)]
     perr = max(float((pc[k] - ph[k]).abs().max()) for k in pc)
     _log(f"[{tag}] loss cuda {lc:.6f} cpu {lh:.6f}  grad_norm cuda "
          f"{gc:.6f} cpu {gh:.6f}  max|state_dict diff| after step "
-         f"{perr:.2e}; K4 launches {kc} on the card, {kh} on the CPU")
+         f"{perr:.2e}; K4 launches {fwd[0]} on the card, {fwd[1]} on the "
+         f"CPU; its gradient {bwd[0]} on the card, {bwd[1]} on the CPU")
     _require(math.isfinite(lc) and abs(lc - lh) <= 1e-4 * abs(lh),
              f"{tag}: loss differs between card and CPU")
     _require(abs(gc - gh) <= 1e-3 * abs(gh), f"{tag}: grad norm differs")
@@ -835,8 +983,9 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
     # size: a gradient near zero may flip sign between the devices
     _require(perr <= 2 * lr * (1 + 1e-3),
              f"{tag}: params or running statistics after the step differ")
-    _require(kc == (t if hyper_beta is not None else 0) and kh == 0,
-             f"{tag}: K4 launch count")
+    want = t if hyper_beta is not None else 0
+    _require(fwd == [want, 0] and bwd == [want, 0],
+             f"{tag}: K4 or K4 backward launch count")
     _tf32(torch, True)
 
 
@@ -871,6 +1020,13 @@ def _profile(torch, tag, fn):
             f"{k[4:]} {v:.1f}" for k, v in sorted(spans.items())))
     for e in kernels[:15]:
         _log(f"[{tag}]   {dev_ms(e):8.2f} ms x{e.count:<5d} {e.key[:110]}")
+    ours = _csrc_kernels()
+    own = [e for e in kernels
+           if _kernel_name(e.key).split("<")[0] in ours]
+    if own:
+        _log(f"[{tag}] the port's kernels: " + ", ".join(
+            f"{_kernel_name(e.key)} {dev_ms(e):.2f} ms x{e.count}"
+            for e in own))
 
 
 def phase_slice(torch, dev, seed, steps, profile=False, module=None,
@@ -879,8 +1035,8 @@ def phase_slice(torch, dev, seed, steps, profile=False, module=None,
     """A train config at full width (default the flagship) with a random
     LPIPS trunk and a random RAFT-small teacher, `steps` train steps from
     uint8 video; K1 must launch once a step. With `hyper_beta` (the
-    HyperE2VID config) K4 must launch once a time step and the BatchNorm
-    running statistics must move."""
+    HyperE2VID config) K4 and its gradient must launch once a time step
+    each and the BatchNorm running statistics must move."""
     from v2v_tpu_torch.losses.lpips import LPIPS
     from v2v_tpu_torch.training.interface import (ModelInterface,
                                                   aggregate_per_source)
@@ -948,9 +1104,10 @@ def phase_slice(torch, dev, seed, steps, profile=False, module=None,
              f"{tag}: K1 launched {launches['simulate_batch']} times in "
              f"{steps} steps")
     want_k4 = t * steps if kw else 0
-    _require(launches["dynamic_shift_sum"] == want_k4,
-             f"{tag}: K4 launched {launches['dynamic_shift_sum']} times, "
-             f"want {want_k4}")
+    for name in ("dynamic_shift_sum", "dynamic_shift_sum_backward"):
+        _require(launches[name] == want_k4,
+                 f"{tag}: {name} launched {launches[name]} times, want "
+                 f"{want_k4}")
     if stats0:
         moved = {k: float((v - stats0[k]).abs().max())
                  for k, v in iface.model.named_buffers() if k in stats0}
@@ -1192,6 +1349,7 @@ def main(argv=None) -> int:
         k5 = phase_k5(torch, dev, args.seed, k1["ms"])
         k3 = phase_k3(torch, dev, args.seed, builds["attention.cu"])
         k4 = phase_k4(torch, dev, args.seed)
+        k4_bwd = phase_k4_backward(torch, dev, args.seed)
         phase_reference(torch, dev, args.seed)
         paths = {"slice": phase_slice(torch, dev, args.seed, args.steps,
                                       args.profile)}
@@ -1222,7 +1380,7 @@ def main(argv=None) -> int:
         return 1
     # launches of each kernel on the main paths, each counted from 0 just
     # before its path ran
-    kernels = [k1, k2, k3, k4, k5]
+    kernels = [k1, k2, k3, k4, k4_bwd, k5]
     for rec in kernels:
         by_path = {p: n[rec["name"]] for p, n in paths.items()
                    if n[rec["name"]]}
