@@ -190,11 +190,13 @@ HYPER_PARAMS = 10_149_881
 # 1 - 0/16
 HYPER_BETA = 1.0
 # K4's shapes on the path: the 720p eval's decoder 0 (B, H/4, W/4, M, CO)
-# float32, the train step's bfloat16 (B=12 at 128/4 = 32), and a shape
-# whose H, W are not multiples of the 8x8 tile and whose CO is odd
+# float32, the train step's bfloat16 (B=12 at 128/4 = 32), a shape whose
+# H, W are not multiples of the tiles and whose CO is odd, and CO = 256,
+# two channel chunks
 K4_SHAPES = (((1, 180, 320, 6, 128), "float32"),
              ((12, 32, 32, 6, 128), "bfloat16"),
-             ((2, 37, 53, 6, 97), "float32"))
+             ((2, 37, 53, 6, 97), "float32"),
+             ((2, 16, 24, 6, 256), "float32"))
 # K4's gradient: the train step's shape in bfloat16, a ragged shape with
 # odd CO, and CO = 256, two channel chunks in the datoms kernel
 K4_BWD_SHAPES = (((12, 32, 32, 6, 128), "bfloat16"),
@@ -764,10 +766,11 @@ def _shift_sum_bound(z, atoms):
 
 
 def phase_k4(torch, dev, seed):
-    """K4 against its plain version on the same tensors at the eval, train
-    and ragged shapes, TF32 off; _ShiftSum's gradients (its backward
-    kernels) at the train shape against autograd through the plain loop;
-    K4 timed at the two path shapes."""
+    """K4 against its plain version on the same tensors at K4_SHAPES, TF32
+    off, with equal bits over two calls; _ShiftSum's gradients (its
+    backward kernels) at the train shape against autograd through the
+    plain loop; K4 timed at the two path shapes, a call and back to back,
+    beside the plain version and the bound."""
     from v2v_tpu_torch.ops import dynconv as dc
     _tf32(torch, False)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -777,16 +780,20 @@ def phase_k4(torch, dev, seed):
             getattr(torch, dtype))
         atoms = torch.randn(shape[:4] + (25,), generator=g, device=dev)
         got = dc.dynamic_shift_sum(z, atoms, 5)
+        again = dc.dynamic_shift_sum(z, atoms, 5)
         want = dc.dynamic_shift_sum_plain(z, atoms, 5)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        same = torch.equal(got, again)
         _log(f"[k4] z {shape} {dtype}: max|diff| {err:.3e} (tolerance "
-             f"{K4_ATOL}), max|out| {float(want.abs().max()):.3f}")
+             f"{K4_ATOL}), max|out| {float(want.abs().max()):.3f}; two calls "
+             f"equal bits: {same}")
         _require(got.dtype == torch.float32 and got.shape == shape[:3]
                  + shape[4:], f"K4 {shape}: output {got.dtype} "
                  f"{tuple(got.shape)}")
         _require(bool(torch.isfinite(got).all()), f"K4 {shape}: non-finite")
         _require(err <= K4_ATOL, f"K4 {shape}: beyond the tolerance")
+        _require(same, f"K4 {shape}: two calls differ")
         worst = max(worst, err)
         inputs.append((z, atoms))
     # gradients at the train shape (bfloat16 z), through the backward
@@ -817,23 +824,31 @@ def phase_k4(torch, dev, seed):
     times = []
     for z, atoms in inputs[:2]:
         ms = _cuda_ms(lambda: dc.dynamic_shift_sum(z, atoms, 5), 20)
+        # back to back through the kernel's own wrapper: at the train shape
+        # the autograd entry's host time a call exceeds the kernel's
+        b2b_ms = _cuda_ms_back_to_back(
+            lambda: dc._shift_sum_kernel(z, atoms, 5), 20)
         plain_ms = _cuda_ms(lambda: dc.dynamic_shift_sum_plain(z, atoms, 5),
                             5, warmup=1)
         (bound_ms, bound_by), bytes_ = _shift_sum_bound(z, atoms)
-        _log(f"[k4] z {tuple(z.shape)} {str(z.dtype)[6:]}: kernel {ms:.4f} "
-             f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-             f"({bound_by}: {bytes_ / 1e6:.1f} MB); "
-             f"{bytes_ / (ms / 1e3) / 1e12:.2f} TB/s achieved")
-        times.append((ms, plain_ms, bound_ms, bound_by))
+        b, h, w, _, co = z.shape
+        _log(f"[k4] z {tuple(z.shape)} {str(z.dtype)[6:]} ("
+             f"{dc._tile_rows(b, h, w, co, dc._sm_count(dev.index))}-row "
+             f"tiles): kernel {ms:.4f} "
+             f"ms a call, {b2b_ms:.4f} ms back to back (20 calls); plain "
+             f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+             f"{bytes_ / 1e6:.1f} MB); {bytes_ / (ms / 1e3) / 1e12:.2f} TB/s "
+             f"a call, {bytes_ / (b2b_ms / 1e3) / 1e12:.2f} back to back")
+        times.append({"ms": ms, "back_to_back_ms": b2b_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by})
     _tf32(torch, True)
-    (ms, plain_ms, bound_ms, bound_by), train = times
+    eval_, train = times
     return {"name": "dynamic_shift_sum", "route": "cuda",
             "source": "v2v_tpu_torch/csrc/dynconv.cu",
             "replaces": "v2v_tpu/ops/dynconv.py:145",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "train_shape": {"ms": train[0], "plain_ms": train[1],
-                            "bound_ms": train[2], "bound_by": train[3]}}
+            "max_abs_err": worst, **eval_, "library_ms": None,
+            "train_shape": train}
 
 
 def _shift_sum_bwd_bound(z, atoms):

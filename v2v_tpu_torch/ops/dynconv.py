@@ -26,20 +26,21 @@ versions only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ._build import CudaLibrary, check, stream
 
 KERNEL_SIZE = 5          # the kernel's k (csrc/dynconv.cu kK)
-CHANNELS_PER_BLOCK = 128  # csrc/dynconv.cu kCo
-TILE = 8                  # csrc/dynconv.cu kTh = kTw
-SMEM_LIMIT = 232_448      # dynamic shared memory a block may opt into
+CHANNELS_PER_BLOCK = 128  # csrc/dynconv.cu kCo, 4 a lane
+TILE_COLS = 8             # csrc/dynconv.cu kTw; a tile has 4 or 8 rows
+TAPS_PADDED = 8           # csrc/dynconv.cu kAp: an offset row's 5 taps
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.v2v_shift_sum.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.v2v_shift_sum.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.v2v_shift_sum.restype = i
 
 
@@ -54,12 +55,22 @@ LIB = CudaLibrary("dynconv.cu", bind=_bind)
 LIB_BWD = CudaLibrary("dynconv_bwd.cu", bind=_bind_bwd)
 
 
-def _smem_bytes(m: int) -> int:
-    """The kernel's dynamic shared memory: the tile's atoms and one
-    atom's haloed z tile, both float32."""
-    halo = TILE + KERNEL_SIZE - 1
-    return 4 * (TILE * TILE * m * KERNEL_SIZE ** 2
-                + halo * halo * CHANNELS_PER_BLOCK)
+def _smem_bytes(rows: int, z_itemsize: int) -> int:
+    """The kernel's dynamic shared memory: one atom's haloed (rows+4) x 12
+    z tile of 128 channels in z's own type, then the tile's taps of that
+    atom, each offset row's 5 padded to 8, float32."""
+    halo = KERNEL_SIZE - 1
+    z_tile = (rows + halo) * (TILE_COLS + halo) * CHANNELS_PER_BLOCK
+    taps = rows * TILE_COLS * KERNEL_SIZE * TAPS_PADDED
+    return z_tile * z_itemsize + taps * 4
+
+
+def _tile_rows(b: int, h: int, w: int, co: int, sms: int) -> int:
+    """8-row tiles, or 4-row ones where 8 would give the card fewer than
+    two blocks an SM (the train shape: 384 blocks against 192 on 132)."""
+    blocks = (b * -(-h // 8) * -(-w // TILE_COLS)
+              * -(-co // CHANNELS_PER_BLOCK))
+    return 8 if blocks >= 2 * sms else 4
 
 
 def _pad32(z: torch.Tensor, k: int) -> torch.Tensor:
@@ -91,8 +102,15 @@ def dynamic_shift_sum_plain(z: torch.Tensor, atoms: torch.Tensor, k: int
     return out
 
 
-def _shift_sum_kernel(z: torch.Tensor, atoms: torch.Tensor, k: int
-                      ) -> torch.Tensor:
+@functools.cache
+def _sm_count(index: int | None) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _shift_sum_kernel(z: torch.Tensor, atoms: torch.Tensor, k: int,
+                      rows: int | None = None) -> torch.Tensor:
+    """K4 on the card (csrc/dynconv.cu) with tiles of `rows` (4 or 8,
+    default `_tile_rows`) x 8 outputs."""
     if z.dtype not in (torch.float32, torch.bfloat16) or \
             atoms.dtype != torch.float32 or atoms.device != z.device:
         raise ValueError(f"dynamic_shift_sum: z must be float32 or bfloat16 "
@@ -106,13 +124,18 @@ def _shift_sum_kernel(z: torch.Tensor, atoms: torch.Tensor, k: int
         raise ValueError(f"dynamic_shift_sum: z {tuple(z.shape)}, atoms "
                          f"{tuple(atoms.shape)}, k {k}; the kernel takes "
                          f"k = {KERNEL_SIZE} and atoms (B,H,W,M,k*k)")
-    if min(b, h, w, m, co) == 0 or b > 65535 or _smem_bytes(m) > SMEM_LIMIT:
-        raise ValueError(f"dynamic_shift_sum: z {tuple(z.shape)} is empty, "
-                         f"has B > 65535 or M too large for shared memory")
+    if min(b, h, w, m, co) == 0 or b > 65535:
+        raise ValueError(f"dynamic_shift_sum: z {tuple(z.shape)} is empty "
+                         f"or has B > 65535")
+    if z.device.type != "cuda":
+        raise ValueError(f"dynamic_shift_sum: the kernel takes CUDA tensors, "
+                         f"got {z.device}")
+    if rows is None:
+        rows = _tile_rows(b, h, w, co, _sm_count(z.device.index))
     out = torch.empty((b, h, w, co), dtype=torch.float32, device=z.device)
     err = LIB.get().v2v_shift_sum(
         z.data_ptr(), atoms.data_ptr(), out.data_ptr(), b, h, w, m, co,
-        int(z.dtype == torch.bfloat16), stream())
+        int(z.dtype == torch.bfloat16), rows, stream())
     check(err, "dynamic_shift_sum")
     dynamic_shift_sum.launches += 1
     return out
