@@ -49,11 +49,12 @@ Phases, one line each, any failure exits non-zero:
      the runs' launches
 K4 (dynamic_shift_sum) is held against its plain version, values and
 gradients, after K3 (phase 5); its gradient (dynamic_shift_sum_backward,
-csrc/dynconv_bwd.cu) is held against the plain backward at the train,
-a ragged and a two-chunk shape, with equal bits across two calls, and
-timed beside the plain backward. K5 (simulate_interleave) is held against
-its plain version and against K1 with every pixel hot at K1's flagship
-shape, for spp 1, 2 and 4, after K1 (phase 4).
+csrc/dynconv_bwd.cu, whose instances must not spill) is held against the
+plain backward at the train, a ragged and a two-chunk shape, with equal
+bits across two calls, its grid and blocks an SM printed, and timed
+beside the plain backward and the bound. K5 (simulate_interleave) is held
+against its plain version and against K1 with every pixel hot at K1's
+flagship shape, for spp 1, 2 and 4, after K1 (phase 4).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 v2v_tpu_torch package beside it, the script exits 2 and prints no result.
@@ -422,19 +423,27 @@ def _tf32(torch, on: bool):
 
 def phase_build() -> dict:
     """One nvcc per CUDA source, all started together; returns each
-    build's {'path', 'seconds', 'log'} by source name."""
+    build's {'path', 'seconds', 'log', 'cached'} by source name (a
+    library already built gives the ptxas report kept beside it)."""
     from concurrent.futures import ThreadPoolExecutor
     from v2v_tpu_torch.ops import (attention, dynconv, sim_interleave,
                                    voxel_cuda)
     libs = (voxel_cuda.LIB, attention.LIB, dynconv.LIB, dynconv.LIB_BWD,
             sim_interleave.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
-        infos = list(pool.map(lambda lib: lib.build(verbose=True), libs))
+        infos = list(pool.map(lambda lib: lib.build(), libs))
     for lib, info in zip(libs, infos):
-        _log(f"[build] {info['path'].name} in {info['seconds']:.1f} s "
-             f"(nvcc {' '.join(lib.flags)})")
+        _log(f"[build] {info['path'].name} "
+             + ("cached" if info["cached"] else f"in {info['seconds']:.1f} s")
+             + f" (nvcc {' '.join(lib.flags)})")
         for line in _ptxas_summary(info["log"]):
             _log(f"[build]   {line}")
+    # K4's gradient kernels were designed not to spill (csrc/dynconv_bwd.cu)
+    bwd = infos[libs.index(dynconv.LIB_BWD)]["log"]
+    _require(" 0 bytes spill stores" in bwd and not
+             re.search(r" [1-9]\d* bytes spill stores", bwd),
+             "dynconv_bwd.cu: a kernel instance spills, or its ptxas "
+             "report is missing")
     return {lib.source: info for lib, info in zip(libs, infos)}
 
 
@@ -915,11 +924,23 @@ def phase_k4_backward(torch, dev, seed):
     plain_ms = _cuda_ms(lambda: dc.dynamic_shift_sum_backward_plain(
         z, atoms, cot, 5), 5, warmup=1)
     (bound_ms, bound_by), bytes_ = _shift_sum_bwd_bound(z, atoms)
+    b, h, w, m, co = z.shape
+    sms = dc._sm_count(dev.index)
+    tiling = dz_atoms, da_atoms = dc._bwd_tiling(b, h, w, m, co, sms)
+    dz_sm, da_sm = dc._bwd_blocks_per_sm(z.dtype == torch.bfloat16)
+    dz_blocks, da_blocks = dc._bwd_blocks(b, h, w, m, co, tiling)
+    dz_smem, da_smem = dc._bwd_smem_bytes(z.element_size())
+    _log(f"[k4] backward grid at {tuple(z.shape)}: dz {dc.DZ_ROWS}-row "
+         f"tiles, {dz_atoms} atoms a block, {dz_blocks} blocks, {dz_sm} an SM "
+         f"({dz_smem} B shared); datoms {dc.DATOMS_ROWS}-row tiles, "
+         f"{da_atoms} atoms "
+         f"a block, {da_blocks} blocks, {da_sm} an SM ({da_smem} B shared); "
+         f"{sms} SMs")
     _log(f"[k4] backward z {tuple(z.shape)} {str(z.dtype)[6:]}: kernels "
          f"{ms:.4f} ms a call, {b2b_ms:.4f} ms back to back (20 calls); "
          f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-         f"{bytes_ / 1e6:.1f} MB); {bytes_ / (b2b_ms / 1e3) / 1e12:.2f} TB/s "
-         f"achieved back to back")
+         f"{bytes_ / 1e6:.1f} MB); {bytes_ / (ms / 1e3) / 1e12:.2f} TB/s a "
+         f"call, {bytes_ / (b2b_ms / 1e3) / 1e12:.2f} back to back")
     _tf32(torch, True)
     return {"name": "dynamic_shift_sum_backward", "route": "cuda",
             "source": "v2v_tpu_torch/csrc/dynconv_bwd.cu",

@@ -52,30 +52,38 @@ class CudaLibrary:
         self._lib = None
         self._lock = threading.Lock()
 
-    def build(self, verbose: bool = False) -> dict:
+    def build(self) -> dict:
         """Compile into a library named by the hash of the sources and
-        flags; an existing library of that name is reused. Returns
-        {'path', 'seconds', 'log'}."""
+        flags; an existing library of that name is reused. ptxas's report
+        (registers, spills) is kept beside the library as its .log, so a
+        reused library gives it too. Returns {'path', 'seconds', 'log',
+        'cached'}."""
         h = hashlib.sha256(" ".join(self.flags).encode())
         for name in (self.source,) + self.headers:
             h.update((CSRC / name).read_bytes())
         stem = Path(self.source).stem
         out = build_dir() / f"lib{stem}_{h.hexdigest()[:16]}.so"
+        report = out.with_suffix(".log")
         if out.exists():
-            return {"path": out, "seconds": 0.0, "log": "cached"}
+            log = report.read_text() if report.exists() else ""
+            return {"path": out, "seconds": 0.0, "log": log, "cached": True}
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *self.flags, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / self.source)]
+        cmd = [_nvcc(), *self.flags, "-Xptxas", "-v", "-o", str(tmp),
+               str(CSRC / self.source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr}")
+        log = (proc.stdout + proc.stderr).strip()
+        # the report first: whoever finds the library finds its report
+        report_tmp = tmp.with_suffix(".log.tmp")
+        report_tmp.write_text(log)
+        os.replace(report_tmp, report)
         os.replace(tmp, out)
-        return {"path": out, "seconds": seconds,
-                "log": (proc.stdout + proc.stderr).strip()}
+        return {"path": out, "seconds": seconds, "log": log, "cached": False}
 
     def get(self) -> ctypes.CDLL:
         with self._lock:

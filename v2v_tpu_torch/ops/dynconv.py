@@ -13,7 +13,9 @@ at first use (ops/_build.py).
 Gradients go through `_ShiftSum`, whose backward is
 `dynamic_shift_sum_backward`: dz as a gather of the 25 mirrored source
 pixels and datoms as a per-pixel channel reduction, two kernels in
-v2v_tpu_torch/csrc/dynconv_bwd.cu (design and bound there). It replaces
+v2v_tpu_torch/csrc/dynconv_bwd.cu with a block per (tile, batch item,
+group of atoms) each, their tiles loaded by TMA (design and bound
+there). It replaces
 the JAX package's jnp `_shift_sum_bwd`, which has no Pallas kernel (its
 fused Pallas backward was retired for an on-chip mismatch); that loop,
 carried over to PyTorch, is `dynamic_shift_sum_backward_plain`.
@@ -36,6 +38,11 @@ KERNEL_SIZE = 5          # the kernel's k (csrc/dynconv.cu kK)
 CHANNELS_PER_BLOCK = 128  # csrc/dynconv.cu kCo, 4 a lane
 TILE_COLS = 8             # csrc/dynconv.cu kTw; a tile has 4 or 8 rows
 TAPS_PADDED = 8           # csrc/dynconv.cu kAp: an offset row's 5 taps
+# csrc/dynconv_bwd.cu kDzRows, kDaRows: the gradient kernels' tile rows
+DZ_ROWS, DATOMS_ROWS = 8, 4
+# csrc/dynconv_bwd.cu's errors besides cudaError_t values
+_BWD_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+               -2: "cuTensorMapEncodeTiled refused a tensor map"}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -47,8 +54,11 @@ def _bind(lib: ctypes.CDLL) -> None:
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.v2v_shift_sum_bwd.argtypes = [p, p, p, ll, ll, ll, ll, p, p,
-                                      i, i, i, i, i, i, p]
+                                      i, i, i, i, i, i, i, i, p]
     lib.v2v_shift_sum_bwd.restype = i
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib.v2v_shift_sum_bwd_occupancy.argtypes = [i, pi, pi]
+    lib.v2v_shift_sum_bwd_occupancy.restype = i
 
 
 LIB = CudaLibrary("dynconv.cu", bind=_bind)
@@ -165,26 +175,73 @@ def dynamic_shift_sum_backward_plain(z: torch.Tensor, atoms: torch.Tensor,
     return dz.to(z.dtype), da.to(atoms.dtype)
 
 
-def dynamic_shift_sum_backward(z: torch.Tensor, atoms: torch.Tensor,
-                               g: torch.Tensor, k: int
-                               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4's gradient: (dz, datoms) of dynamic_shift_sum(z, atoms, k) under
-    the cotangent g (B,H,W,CO). For CUDA tensors it launches the two
-    kernels of csrc/dynconv_bwd.cu (dz, then datoms) and adds one to
-    `dynamic_shift_sum_backward.launches` for the pair; it raises unless z
-    is float32 or bfloat16, atoms and g float32, k = 5, the shapes agree,
-    z and atoms are contiguous and B, M <= 65535. g may have any strides (the
-    model hands back an NCHW tensor's (B,H,W,CO) view), so it is read in
-    place, not copied. The kernels' shared memory (99,072 and 109,824 B)
-    does not depend on the shape. dz comes out in z's type, datoms in
-    float32. For CPU tensors it runs dynamic_shift_sum_backward_plain."""
-    if z.device.type == "cpu" and atoms.device == g.device == z.device:
-        return dynamic_shift_sum_backward_plain(z, atoms, g, k)
-    if z.device.type != "cuda" or atoms.device != z.device or \
-            g.device != z.device:
-        raise ValueError(f"dynamic_shift_sum_backward: z, atoms and g must "
-                         f"lie on one CUDA device, got {z.device}, "
-                         f"{atoms.device}, {g.device}")
+def _bwd_blocks(b: int, h: int, w: int, m: int, co: int, tiling
+                ) -> tuple[int, int]:
+    """Blocks of the dz and datoms kernels under `tiling`, (dz atoms a
+    block, datoms atoms a block): one per tile (DZ_ROWS or DATOMS_ROWS x
+    8), batch item and group of atoms, and for dz per 128-channel chunk
+    too. dz's tiles start 2 columns left of a multiple of 8 (its TMA box
+    of g must start 16-byte aligned), so a row of the image takes one
+    more of them where W is a multiple of 8."""
+    dz_atoms, da_atoms = tiling
+    dz = (-(-h // DZ_ROWS) * -(-(w + 2) // TILE_COLS) * b * -(-m // dz_atoms)
+          * -(-co // CHANNELS_PER_BLOCK))
+    return dz, (-(-h // DATOMS_ROWS) * -(-w // TILE_COLS) * b
+                * -(-m // da_atoms))
+
+
+@functools.cache
+def _bwd_tiling(b: int, h: int, w: int, m: int, co: int, sms: int
+                ) -> tuple[int, int]:
+    """The gradient kernels' atoms a block, as `_bwd_blocks` takes them:
+    for each kernel the most that still gives every SM a block (at the
+    train shape all 6: 240 dz and 384 datoms blocks on 132 SMs). More
+    atoms a block read the g tile fewer times. Cached: the wrapper asks
+    on every call."""
+    def atoms(which: int) -> int:
+        return max(a for a in range(1, m + 1) if a == 1 or _bwd_blocks(
+            b, h, w, m, co, (a, a))[which] >= sms)
+    return atoms(0), atoms(1)
+
+
+def _bwd_smem_bytes(z_itemsize: int) -> tuple[int, int]:
+    """The gradient kernels' dynamic shared memory (csrc/dynconv_bwd.cu).
+    dz: the haloed (DZ_ROWS+4) x 12 g tile of 128 channels, float32; one
+    atom's taps of the haloed tile, each offset row's 5 padded to 8; the
+    next atom's taps as they arrive. datoms: the haloed (DATOMS_ROWS+4) x
+    12 z tile of one atom in z's own type (two of them for bfloat16 z: the
+    next atom's lands during the sums), then the tile's g, float32. Each
+    adds an mbarrier (16 B) a TMA destination and the 128 B that align the
+    tiles for TMA."""
+    halo = KERNEL_SIZE - 1
+    taps = KERNEL_SIZE * KERNEL_SIZE
+    pixels = (DZ_ROWS + halo) * (TILE_COLS + halo)
+    dz = (pixels * (CHANNELS_PER_BLOCK + KERNEL_SIZE * TAPS_PADDED + taps)
+          * 4 + 16 + 128)
+    pixels = (DATOMS_ROWS + halo) * (TILE_COLS + halo)
+    buffers = 2 if z_itemsize == 2 else 1
+    datoms = (buffers * (pixels * CHANNELS_PER_BLOCK * z_itemsize + 16)
+              + DATOMS_ROWS * TILE_COLS * CHANNELS_PER_BLOCK * 4 + 128)
+    return dz, datoms
+
+
+def _bwd_blocks_per_sm(z_bf16: bool) -> tuple[int, int]:
+    """Blocks an SM of the dz and datoms kernels, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on the
+    current device."""
+    dz, da = ctypes.c_int(), ctypes.c_int()
+    check(LIB_BWD.get().v2v_shift_sum_bwd_occupancy(
+        int(z_bf16), ctypes.byref(dz), ctypes.byref(da)),
+        "dynamic_shift_sum_backward occupancy")
+    return dz.value, da.value
+
+
+def _shift_sum_bwd_kernel(z: torch.Tensor, atoms: torch.Tensor,
+                          g: torch.Tensor, k: int, tiling=None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's gradient on the card (csrc/dynconv_bwd.cu): the dz kernel,
+    then the datoms kernel, each with the atoms a block of `tiling` (dz,
+    datoms), default `_bwd_tiling`."""
     if z.dtype not in (torch.float32, torch.bfloat16) or \
             atoms.dtype != torch.float32 or g.dtype != torch.float32:
         raise ValueError(f"dynamic_shift_sum_backward: z must be float32 or "
@@ -200,18 +257,46 @@ def dynamic_shift_sum_backward(z: torch.Tensor, atoms: torch.Tensor,
                          f"atoms {tuple(atoms.shape)}, g {tuple(g.shape)}, "
                          f"k {k}; the kernels take k = {KERNEL_SIZE}, atoms "
                          f"(B,H,W,M,k*k) and g (B,H,W,CO)")
-    if min(b, h, w, m, co) == 0 or max(b, m) > 65535:
+    if min(b, h, w, m, co) == 0 or max(b, m * -(-co // CHANNELS_PER_BLOCK)) \
+            > 65535:
         raise ValueError(f"dynamic_shift_sum_backward: z {tuple(z.shape)} "
-                         f"is empty or has B or M > 65535")
+                         f"is empty or has B or M * chunks > 65535")
+    if z.device.type != "cuda" or atoms.device != z.device or \
+            g.device != z.device:
+        raise ValueError(f"dynamic_shift_sum_backward: z, atoms and g must "
+                         f"lie on one CUDA device, got {z.device}, "
+                         f"{atoms.device}, {g.device}")
+    if tiling is None:
+        tiling = _bwd_tiling(b, h, w, m, co, _sm_count(z.device.index))
     dz = torch.empty(z.shape, dtype=z.dtype, device=z.device)
     da = torch.empty(atoms.shape, dtype=torch.float32, device=z.device)
     err = LIB_BWD.get().v2v_shift_sum_bwd(
         z.data_ptr(), atoms.data_ptr(), g.data_ptr(), *g.stride(),
         dz.data_ptr(), da.data_ptr(), b, h, w, m, co,
-        int(z.dtype == torch.bfloat16), stream())
+        int(z.dtype == torch.bfloat16), *tiling, stream())
+    if err in _BWD_ERRORS:
+        raise RuntimeError(f"dynamic_shift_sum_backward: {_BWD_ERRORS[err]}")
     check(err, "dynamic_shift_sum_backward")
     dynamic_shift_sum_backward.launches += 1
     return dz, da
+
+
+def dynamic_shift_sum_backward(z: torch.Tensor, atoms: torch.Tensor,
+                               g: torch.Tensor, k: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's gradient: (dz, datoms) of dynamic_shift_sum(z, atoms, k) under
+    the cotangent g (B,H,W,CO). For CUDA tensors it launches the two
+    kernels of csrc/dynconv_bwd.cu (dz, then datoms) and adds one to
+    `dynamic_shift_sum_backward.launches` for the pair; it raises unless z
+    is float32 or bfloat16, atoms and g float32, k = 5, the shapes agree,
+    z and atoms are contiguous, B <= 65535 and M times the 128-channel
+    chunks of CO <= 65535. g may have any strides (the model hands back an
+    NCHW tensor's (B,H,W,CO) view), so it is read in place, not copied.
+    dz comes out in z's type, datoms in float32. For CPU tensors it runs
+    dynamic_shift_sum_backward_plain."""
+    if z.device.type == "cpu" and atoms.device == g.device == z.device:
+        return dynamic_shift_sum_backward_plain(z, atoms, g, k)
+    return _shift_sum_bwd_kernel(z, atoms, g, k)
 
 
 dynamic_shift_sum_backward.launches = 0
