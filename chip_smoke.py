@@ -7,11 +7,15 @@ Phases, one line each, any failure exits non-zero:
   1. device: nvidia-smi name and power limit, torch/CUDA versions, TF32
   2. build: nvcc builds the CUDA kernels from v2v_tpu_torch/csrc, one
      process per source, all at once, and prints each kernel's registers
-     and spills
+     and spills; an instance of esim.cu or dynconv_bwd.cu must not spill
   3. K2 (sample_gaussian) against its plain version: equal bits
   4. K1 (simulate_batch) against its plain version at the flagship shape
-     (12, 201, 128, 128): uint8 and float32 video, noise-free and noisy,
-     and a 180x240 crop; then both timed with CUDA events
+     (12, 201, 128, 128), a 180x240 crop and a ragged (2, 9, 7, 9): equal
+     bits on uint8 video, noise-free and noisy, and the flip budget on
+     float32 video; the kernel timed a call and back to back (with the SM
+     clock under load) beside the plain version, its bytes bound (counts
+     at 2 bytes) and an issue bound from the instructions a pixel-frame
+     counted in its SASS (cuobjdump)
   5. K3 (attention) against its plain version (TF32 off) at ETNet's 720p
      shape (1, 8, 14400, 32), at a ragged 5001 tokens, with 50 keys (fewer
      than one key tile) and at (2, 8, 300, 32) against 777 keys; its
@@ -66,7 +70,6 @@ import json
 import math
 import os
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -232,10 +235,12 @@ K3_ATOL = 1e-5
 # recurrent steps
 EVAL_REF_ATOL = 1e-4
 
-# K1's flagship shape (B, N, H, W) and the off-multiple crop it is also
-# held at; the flagship E2VID's parameter count
+# K1's flagship shape (B, N, H, W), the off-multiple crop it is also
+# held at, and a ragged shape (H*W odd, N-1 not a multiple of 4); the
+# flagship E2VID's parameter count
 K1_SHAPE = (12, 201, 128, 128)
 CROP_HW = (180, 240)
+K1_RAGGED = (2, 9, 7, 9)
 FLAGSHIP_PARAMS = 10_710_401
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
@@ -249,10 +254,11 @@ TF32_FLOPS = 495e12
 # of the 132 SMs, at the 1.98 GHz boost clock
 EXP_PER_S = 16 * 132 * 1.98e9
 # float32 operations per simulated pixel and frame, counted from
-# csrc/esim.cu: log diff and add (2), quantization (2 divisions, 2
-# multiplies, 2 adds), noise (Irwin-Hall 2, scale 1, two adds 2); the
-# Philox integer work has no entry in the data sheet's rate table
-K1_FLOPS_NOISY = 13
+# csrc/esim.cu and esim.cuh: log diff and add (2), quantization (1
+# division, 2 multiplies, 2 adds), noise (Irwin-Hall 2, scale 1, two adds
+# 2); the Philox integer work has no entry in the data sheet's rate table,
+# so [k1] also counts K1's issued instructions in its SASS
+K1_FLOPS_NOISY = 12
 # Flip budget of two float32 log implementations (docs/PERF.md, "Round 4:
 # device-log flip budget"): |delta| <= 1 at a rate <= 5e-4.
 FLIP_RATE = 5e-4
@@ -438,12 +444,21 @@ def phase_build() -> dict:
              + f" (nvcc {' '.join(lib.flags)})")
         for line in _ptxas_summary(info["log"]):
             _log(f"[build]   {line}")
-    # K4's gradient kernels were designed not to spill (csrc/dynconv_bwd.cu)
+    # K4's gradient kernels and K1 on uint8 video (the train step's) were
+    # designed not to spill (csrc/dynconv_bwd.cu, csrc/esim.cu); K1 on
+    # float32 video (no main path's) calls powf and logf, whose slow paths
+    # are out-of-line calls, and ptxas may spill a few bytes around them
     bwd = infos[libs.index(dynconv.LIB_BWD)]["log"]
     _require(" 0 bytes spill stores" in bwd and not
              re.search(r" [1-9]\d* bytes spill stores", bwd),
              "dynconv_bwd.cu: a kernel instance spills, or its ptxas "
              "report is missing")
+    esim = [line for line in _ptxas_summary(
+        infos[libs.index(voxel_cuda.LIB)]["log"])
+        if line.startswith("esim_kernel<true")]
+    _require(bool(esim) and all(" 0 B spill stores" in line for line in esim),
+             "esim.cu: a uint8 instance spills, or its ptxas report is "
+             "missing")
     return {lib.source: info for lib, info in zip(libs, infos)}
 
 
@@ -462,30 +477,10 @@ def _ptxas_summary(log: str) -> list:
                                       f"{m.group(2)} B spill loads"
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             kernels[name]["registers"] = int(m.group(1))
-    names = list(kernels)
-    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
-    try:
-        out = subprocess.run([filt], input="\n".join(names), text=True,
-                             capture_output=True, timeout=60).stdout
-        shown = out.splitlines() if len(out.splitlines()) == len(names) \
-            else names
-    except OSError:
-        shown = names
-    return [f"{_kernel_name(full)}: {k.get('registers')} registers, "
+    from v2v_tpu_torch.ops._sass import demangle, kernel_name
+    shown = demangle(list(kernels))
+    return [f"{kernel_name(full)}: {k.get('registers')} registers, "
             f"{k.get('spills')}" for full, k in zip(shown, kernels.values())]
-
-
-def _kernel_name(demangled: str) -> str:
-    """A demangled kernel's name with its template arguments, without its
-    return type, anonymous namespace or parameters."""
-    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "",
-                  demangled)
-    depth = 0
-    for i, ch in enumerate(name):
-        depth += (ch == "<") - (ch == ">")
-        if ch == "(" and depth == 0:
-            return name[:i]
-    return name
 
 
 def _csrc_kernels() -> set:
@@ -521,9 +516,14 @@ def phase_k2(torch, dev, seed):
             "bound_by": bound_by, "library_ms": None}
 
 
-def phase_k1(torch, dev, seed):
+def phase_k1(torch, dev, seed, build):
+    """K1 against its plain version: equal bits on uint8 video (noise-free
+    and noisy) at the flagship shape, the 180x240 crop and a ragged shape,
+    the flip budget on float32 video; timed a call and back to back beside
+    its bytes bound and the issue bound of its SASS."""
+    from v2v_tpu_torch.ops import _sass as sa
     from v2v_tpu_torch.ops import voxel_cuda as vc
-    from v2v_tpu_torch.ops.voxel import sample_sim_params
+    from v2v_tpu_torch.ops.voxel import SimParams, sample_sim_params
     from v2v_tpu_torch.training.train import sim_config_from_dataset
     b, n, h, w = K1_SHAPE
     sim_cfg = sim_config_from_dataset(FLAGSHIP_STAGE["dataset"]["train"][0])
@@ -532,39 +532,74 @@ def phase_k1(torch, dev, seed):
     params = sample_sim_params(g, sim_cfg, b)
     seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=g, device=dev,
                           dtype=torch.int32)
+    crop = _drifting_video(b, n, *CROP_HW, seed + 1, dev)
+    rb = K1_RAGGED[0]
+    ragged = _drifting_video(*K1_RAGGED, seed + 2, dev)
+    r_params = SimParams(*(v[:rb] for v in params))
     worst = 0.0
     cases = [("uint8 noise-free", video, True), ("uint8 noisy", video, False),
              ("float32 noisy", video.float(), False),
              ("float32 noise-free", video.float(), True)]
-    crop = _drifting_video(b, n, *CROP_HW, seed + 1, dev)
-    cases.append((f"uint8 noisy {CROP_HW[0]}x{CROP_HW[1]}", crop, False))
+    crop_name = f"{CROP_HW[0]}x{CROP_HW[1]}"
+    cases += [(f"uint8 noise-free {crop_name}", crop, True),
+              (f"uint8 noisy {crop_name}", crop, False),
+              ("uint8 noise-free ragged", ragged, True),
+              ("uint8 noisy ragged", ragged, False),
+              ("float32 noisy ragged", ragged.float(), False)]
     for name, v, nf in cases:
-        got = vc.simulate_batch(v, seeds, params, noise_free=nf)
-        want = vc.simulate_batch_plain(v, seeds, params, noise_free=nf)
+        s, prm = (seeds, params) if v.shape[0] == b else (seeds[:rb],
+                                                           r_params)
+        got = vc.simulate_batch(v, s, prm, noise_free=nf)
+        want = vc.simulate_batch_plain(v, s, prm, noise_free=nf)
         torch.cuda.synchronize()
-        dmax, rate = _counts_diff(got, want)
-        events = float(want.abs().mean())
+        _require(got.dtype == torch.bfloat16 and got.shape == want.shape,
+                 f"K1 {name}: {got.dtype} {tuple(got.shape)}")
+        dmax, rate = _counts_diff(got.float(), want.float())
+        events = float(want.float().abs().mean())
         _log(f"[k1] {name}: shape {tuple(got.shape)} mean|events| "
              f"{events:.4f} max|diff| {dmax} mismatch rate {rate:.2e}")
         _require(bool(torch.isfinite(got).all()), f"K1 {name}: non-finite")
         _require(events > 0, f"K1 {name}: no events")
+        if v.dtype == torch.uint8:
+            _require(torch.equal(got, want),
+                     f"K1 {name}: bits differ from the plain version")
         _require(dmax <= 1.0 and rate <= FLIP_RATE,
                  f"K1 {name}: beyond the flip budget")
         worst = max(worst, dmax)
-    ms = _cuda_ms(lambda: vc.simulate_batch(video, seeds, params), 20)
+    fn = lambda: vc.simulate_batch(video, seeds, params)
+    ms = _cuda_ms(fn, 20)
+    b2b = _cuda_ms_back_to_back(fn, 20)
+    clock, power = _clocks_while(fn)
     plain_ms = _cuda_ms(lambda: vc.simulate_batch_plain(video, seeds, params),
                         3, warmup=1)
     px_frames = b * (n - 1) * h * w
-    bytes_ = b * n * h * w + px_frames * 4
+    bytes_ = b * n * h * w + px_frames * 2
     bound_ms, bound_by = _bound(bytes_, K1_FLOPS_NOISY * px_frames)
-    _log(f"[k1] flagship uint8 noisy: kernel {ms:.4f} ms (bound "
-         f"{bound_ms:.4f} ms, bytes {bytes_ / 1e6:.1f} MB), plain "
-         f"{plain_ms:.2f} ms; {b / (ms / 1e3):.0f} clips/s")
+    static_px, per_px, pix, _ = sa.k1_issue_report(build["path"])
+    issue_ms = None if per_px is None else sa.issue_ms(per_px * px_frames)
+    _log(f"[k1] SASS: esim_kernel<true, true, true, {pix}>'s quad loop "
+         + (f"{static_px * 4 * pix:.0f} instructions for 4 frames of {pix} "
+            f"pixels, {per_px * 4 * pix:.0f} issued without the divisions' "
+            f"slow paths: {per_px:.2f} a pixel-frame ({static_px:.2f} "
+            f"with them); issue bound {issue_ms:.4f} ms "
+            f"({sa.ISSUE_PER_CLOCK} warp instructions a clock, {sa.SMS} "
+            f"SMs, {sa.BOOST_HZ / 1e9} GHz)"
+            if per_px is not None else "not found: issue bound not "
+                                       "measured"))
+    _log(f"[k1] flagship uint8 noisy: kernel {ms:.4f} ms a call, "
+         f"{b2b:.4f} ms back to back (SM clock "
+         f"{clock if clock is None else f'{clock:.0f} MHz'}, power "
+         f"{power if power is None else f'{power:.0f} W'}); bound "
+         f"{bound_ms:.4f} ms ({bound_by}: {bytes_ / 1e6:.1f} MB, counts at "
+         f"2 bytes); plain {plain_ms:.2f} ms; {b / (b2b / 1e3):.0f} clips/s "
+         f"back to back")
     return {"name": "simulate_batch", "route": "cuda",
             "source": "v2v_tpu_torch/csrc/esim.cu",
             "replaces": "v2v_tpu/ops/voxel_pallas.py:172",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "back_to_back_ms": b2b, "issue_bound_ms": issue_ms,
+            "sass_instructions_per_pixel_frame": per_px}
 
 
 def phase_k5(torch, dev, seed, k1_ms):
@@ -586,8 +621,11 @@ def phase_k5(torch, dev, seed, k1_ms):
     pos, neg, noise = prm.pos_thres, prm.neg_thres, prm.base_noise_std
     seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=g, device=dev,
                           dtype=torch.int32)
-    k1_prm = SimParams(pos, neg, noise, 2.0, si.HOT_STD)
-    k1 = vc.simulate_batch(video, seeds, k1_prm).to(torch.bfloat16)
+    # per-clip tensors on the card, so that K1's wrapper copies nothing
+    # from the host when it is timed back to back below
+    k1_prm = SimParams(pos, neg, noise, torch.full_like(pos, 2.0),
+                       torch.full_like(pos, si.HOT_STD))
+    k1 = vc.simulate_batch(video, seeds, k1_prm)
     worst = 0.0
     for name, v in (("uint8", video), ("float32", video.float())):
         want = si.simulate_interleave_plain(v, seeds, pos, neg, noise)
@@ -630,7 +668,7 @@ def phase_k5(torch, dev, seed, k1_ms):
     _log(f"[k5] flagship uint8: kernel " + ", ".join(
         f"spp={s} {t:.4f} ms ({b / (t / 1e3):.0f} clips/s)"
         for s, t in ms.items())
-        + f"; K1 (float32 out) {k1_ms:.4f} ms; plain {plain_ms:.2f} ms; "
+        + f"; K1 {k1_ms:.4f} ms; plain {plain_ms:.2f} ms; "
           f"bound {bound_ms:.4f} ms ({bound_by}: {bytes_ / 1e6:.1f} MB)")
     _log(f"[k5] back to back, 20 calls: " + ", ".join(
         f"spp={s} {t:.4f} ms" for s, t in b2b.items())
@@ -673,11 +711,9 @@ def _k3_build_report(build: dict) -> dict:
     each kernel) and its tensor-core (HGMMA) and TMA (UTMALDG) SASS
     instructions, counted with cuobjdump in the built library."""
     from v2v_tpu_torch.ops import attention as at
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(build["path"])],
-                          capture_output=True, text=True, timeout=120)
-    _require(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
-    counts = {op: sum(1 for line in sass.stdout.splitlines()
+    from v2v_tpu_torch.ops._sass import sass as read_sass
+    sass = read_sass(build["path"])
+    counts = {op: sum(1 for line in sass.splitlines()
                       if f" {op}" in line)
               for op in ("HGMMA", "UTMALDG")}
     lines = [line.strip() for line in build["log"].splitlines()
@@ -1056,12 +1092,13 @@ def _profile(torch, tag, fn):
             f"{k[4:]} {v:.1f}" for k, v in sorted(spans.items())))
     for e in kernels[:15]:
         _log(f"[{tag}]   {dev_ms(e):8.2f} ms x{e.count:<5d} {e.key[:110]}")
+    from v2v_tpu_torch.ops._sass import kernel_name
     ours = _csrc_kernels()
     own = [e for e in kernels
-           if _kernel_name(e.key).split("<")[0] in ours]
+           if kernel_name(e.key).split("<")[0] in ours]
     if own:
         _log(f"[{tag}] the port's kernels: " + ", ".join(
-            f"{_kernel_name(e.key)} {dev_ms(e):.2f} ms x{e.count}"
+            f"{kernel_name(e.key)} {dev_ms(e):.4f} ms x{e.count}"
             for e in own))
 
 
@@ -1381,7 +1418,7 @@ def main(argv=None) -> int:
         phase_device(torch)
         builds = phase_build()
         k2 = phase_k2(torch, dev, args.seed)
-        k1 = phase_k1(torch, dev, args.seed)
+        k1 = phase_k1(torch, dev, args.seed, builds["esim.cu"])
         k5 = phase_k5(torch, dev, args.seed, k1["ms"])
         k3 = phase_k3(torch, dev, args.seed, builds["attention.cu"])
         k4 = phase_k4(torch, dev, args.seed)

@@ -74,8 +74,8 @@ def test_jax_interpret_k5_matches_plain_with_zero_bits(jax_exp, monkeypatch,
     video = exp.make_video((b, n, h, w)).astype(dtype)
     seeds = np.arange(b, dtype=np.int32) + 7
     pos, neg, noise = _clip_params(b)
-    monkeypatch.setattr(vc, "_philox_word", lambda seed, pixel, frame,
-                        stream: (seed + pixel) * 0)
+    monkeypatch.setattr(vc, "_philox_draws", lambda seed, pixel, counter,
+                        stream: ((seed + pixel) * 0,) * 4)
     want = si.simulate_interleave_plain(
         torch.from_numpy(video), torch.from_numpy(seeds),
         *map(torch.from_numpy, (pos, neg, noise))).to(torch.float32).numpy()

@@ -1,136 +1,345 @@
-// K1: fused video -> signed event count simulator.
+// K1: fused video -> signed event count simulator, bfloat16 counts.
 // K2: raw samples of K1's gaussian generator.
 //
 // Replaces v2v_tpu/ops/voxel_pallas.py::simulate_batch_pallas (K1, body
 // _sim_kernel) and ::sample_gaussian_pallas (K2).
 //
-// What bounds it: K1 reads the video once and writes the counts once.
-// At the flagship shape (B=12, N=201, 128x128, uint8 in, float32 out)
-// that is 39.5 MB + 157.3 MB = 196.8 MB, about 59 us at 3.35 TB/s. The
-// float32 arithmetic per pixel and frame is small beside that, so the
-// roofline bound is bytes. On an H100 it runs at about 0.5 TB/s: K5
-// (sim_interleave.cu), the same chain writing bfloat16 counts, takes a
-// third less time back to back, and the rest goes to issuing the Philox
-// draw's integer rounds (PERF.md).
+// What bounds it. K1 reads the video once and writes the counts once, in
+// bfloat16 as the TPU kernel writes them (voxel_pallas.py:225). At the
+// flagship shape (B=12, N=201, 128x128, uint8 in) that is 39.5 MB + 78.6
+// MB = 118.2 MB, 0.0353 ms at 3.35 TB/s. But each of the 39.3 M
+// pixel-frames also issues a chain of integer and float32 instructions
+// (a quarter of a Philox call, the Irwin-Hall sum, the potential update,
+// one IEEE division and the residual): at the 49 of them a pixel-frame
+// that this kernel's loop issues (its SASS, the divisions' slow paths
+// left out) the card needs 0.058 ms just to issue them (4 warp
+// instructions a clock on each of 132 SMs at 1.98 GHz). So K1 is bound
+// by issued instructions; chip_smoke.py's [k1] counts them in this
+// file's SASS. Target, back to back at the flagship shape with noise:
+// <= 0.15 ms (the previous design, a Philox call per draw, two divisions
+// and float32 counts, took 0.3571 ms); it runs 0.087-0.089 ms (PERF.md).
 //
-// Design: one thread per pixel (b, y, x) walks frames 1..N-1 with the
-// membrane potential, the previous log frame and the hot-pixel noise in
-// registers: nothing but the video and the counts touches device
-// memory. Neighbouring threads hold neighbouring x, so every frame's
-// read and write is coalesced across the warp. The random bits come
-// from a per-pixel Philox counter, so the result does not depend on the
-// launch shape, and the plain PyTorch twin reproduces it exactly.
+// Design, against that bound:
+// - Every word of a Philox call is used (philox.cuh's draw layout): a
+//   pixel's noise for 4 frames comes from one call, its three start-up
+//   draws from another. The frame loop walks quads of 4 frames, the
+//   draw layout's unit; a ragged last quad runs after the loop.
+// - quantize_events (esim.cuh) divides once; the Irwin-Hall sum is one
+//   dp4a and its float conversion an add (philox.cuh).
+// - A thread owns kPix neighbouring pixels of one clip: one vector load
+//   of kPix uint8 per frame, one vector store of kPix bfloat16 counts,
+//   and kPix independent chains for the scheduler to overlap. The next
+//   quad's 4 frames are loaded before the current quad is computed.
+//   Where H*W is not a multiple of kPix or a pointer is not aligned
+//   for the vector, the same thread shape loads and stores pixel by
+//   pixel and masks the clip's ragged tail.
+// - The 1 KB log table of the 256 uint8 levels sits in shared memory.
+// kPix and the block size were chosen on the card by timing each of 1,
+// 2, 4 and 8 pixels a thread in blocks of 64 to 256 (PERF.md): at the
+// flagship shape 2 pixels a thread in blocks of 256 ran 0.0873 ms back
+// to back, 4 in blocks of 128 0.0887, 1 0.099-0.107, 8 0.147 (H100 80GB
+// HBM3, 700 W). Only the kept shape is built;
+// v2v_tpu_torch/scripts/k1_designs.py times it against an older tree.
+// More pixels a thread issue fewer instructions a pixel-frame (SASS: 55.5
+// at 1, 49.0 at 2, 45.4 at 4, 44.7 at 8: a Philox call's set-up and the
+// loop's bookkeeping are shared) but leave fewer warps to hide latency.
+//
+// The result does not depend on kPix or the launch shape: each pixel's
+// chain is its own, and its draws are keyed by (seed, pixel, frame).
 //
 // Rounding: build with -fmad=false (no FMA contraction of the potential
 // update, which the plain version runs as separate ops) and never with
-// --use_fast_math (floorf(pot / theta) needs IEEE division); the log
-// values and the quantization are esim.cuh's, shared with K5.
+// --use_fast_math (floorf(|pot| / theta) needs IEEE division); the log
+// values and the quantization are esim.cuh's, shared with K5. Counts
+// are rounded to bfloat16 to nearest even, as the plain version's cast
+// and JAX's astype: the integers up to 256 in magnitude are exact.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 #include "esim.cuh"
 #include "philox.cuh"
 
 namespace {
 
-template <bool kU8, bool kNoise>
-__global__ void esim_kernel(const void* __restrict__ video,
-                            const float* __restrict__ table,
-                            const int32_t* __restrict__ seeds,
-                            const float* __restrict__ pos_thres,
-                            const float* __restrict__ neg_thres,
-                            const float* __restrict__ noise_std,
-                            const float* __restrict__ hot_frac,
-                            const float* __restrict__ hot_std,
-                            float* __restrict__ out, int B, int N, int HW) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(B) * HW) return;
-  const int b = static_cast<int>(idx / HW);
-  const uint32_t p = static_cast<uint32_t>(idx - static_cast<long long>(b) * HW);
-  const float tp = pos_thres[b];
-  const float tn = neg_thres[b];
+constexpr int kPix = 2;          // pixels a thread
+constexpr int kThreads = 256;    // threads a block
 
-  float pot = 0.0f;
-  float hot = 0.0f;
-  float std_b = 0.0f;
-  uint32_t seed = 0;
-  if (kNoise) {
-    seed = static_cast<uint32_t>(seeds[b]);
-    std_b = noise_std[b];
-    const float u = v2v::uniform01(v2v::philox_word(seed, p, 0, v2v::kStreamInit));
-    pot = u * (tp + tn) - tn;
-    const float um =
-        v2v::uniform01(v2v::philox_word(seed, p, 0, v2v::kStreamHotMask));
-    const float g =
-        v2v::irwin_hall_gaussian(v2v::philox_word(seed, p, 0, v2v::kStreamHotVal));
-    const float hv = hot_std[b] * g;
-    hot = um < hot_frac[b] ? hv : 0.0f;
-  }
+// The unsigned type of kBytes bytes, for one vector load or store.
+template <int kBytes> struct Vec;
+template <> struct Vec<2> { using T = uint16_t; };
+template <> struct Vec<4> { using T = uint32_t; };
+template <> struct Vec<8> { using T = uint2; };
 
-  const size_t in_base = static_cast<size_t>(b) * N * HW + p;
-  const size_t out_base = static_cast<size_t>(b) * (N - 1) * HW + p;
-  float log_prev = v2v::load_log<kU8>(video, in_base, table);
-  for (int i = 1; i < N; ++i) {
-    const float log_new = v2v::load_log<kU8>(
-        video, in_base + static_cast<size_t>(i) * HW, table);
-    pot = pot + (log_new - log_prev);
-    if (kNoise) {
-      const float g = v2v::irwin_hall_gaussian(
-          v2v::philox_word(seed, p, static_cast<uint32_t>(i), v2v::kStreamNoise));
-      pot = pot + std_b * g;
-      pot = pot + hot;
-    }
-    out[out_base + static_cast<size_t>(i - 1) * HW] =
-        v2v::quantize_events(pot, tp, tn);
-    log_prev = log_new;
+// kN elements from src, one vector load (kVec) or element by element
+// with the first `valid` read and the rest zero.
+template <bool kVec, int kN, typename T>
+__device__ __forceinline__ void load_pixels(const T* src, int valid,
+                                            T (&dst)[kN]) {
+  if (kVec) {
+    using V = typename Vec<sizeof(T) * kN>::T;
+    const V v = __ldg(reinterpret_cast<const V*>(src));
+    memcpy(dst, &v, sizeof(V));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) dst[j] = j < valid ? __ldg(src + j) : T(0);
   }
 }
 
+// kN counts to dst as bfloat16 (round to nearest even): one vector store
+// (kVec) or the first `valid` element by element.
+template <bool kVec, int kN>
+__device__ __forceinline__ void store_counts(__nv_bfloat16* dst, int valid,
+                                             const float (&c)[kN]) {
+  __nv_bfloat16 h[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) h[j] = __float2bfloat16_rn(c[j]);
+  if (kVec) {
+    using V = typename Vec<2 * kN>::T;
+    V v;
+    memcpy(&v, h, sizeof(V));
+    *reinterpret_cast<V*>(dst) = v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      if (j < valid) dst[j] = h[j];
+  }
+}
+
+__device__ __forceinline__ float log_of(uint8_t v, const float* table) {
+  return table[v];
+}
+
+__device__ __forceinline__ float log_of(float v, const float*) {
+  return v2v::log_intensity(v);
+}
+
+// A launch's arguments; (B,) per-clip parameters.
+struct SimArgs {
+  const void* video;      // (B, N, H, W) uint8 or float32
+  const float* table;     // log values of the 256 uint8 levels
+  const int32_t* seeds;
+  const float* pos_thres;
+  const float* neg_thres;
+  const float* noise_std;
+  const float* hot_frac;
+  const float* hot_std;
+  __nv_bfloat16* out;     // (B, N-1, H, W)
+  int B, N, HW;
+};
+
+struct Clip {
+  float tp, tn, std_b;
+  uint32_t seed;
+};
+
+// One frame of kN chains: the log step, the noise, the quantization.
+template <bool kNoise, int kN, typename In>
+__device__ __forceinline__ void frame_step(const In (&raw)[kN],
+                                           const uint4 (&w)[kN], int f,
+                                           const float* table,
+                                           const Clip& c, float (&pot)[kN],
+                                           float (&prev)[kN],
+                                           const float (&hot)[kN],
+                                           float (&counts)[kN]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const float log_new = log_of(raw[j], table);
+    pot[j] = pot[j] + (log_new - prev[j]);
+    if (kNoise) {
+      const float g = v2v::irwin_hall_gaussian(v2v::word(w[j], f));
+      pot[j] = pot[j] + c.std_b * g;
+      pot[j] = pot[j] + hot[j];
+    }
+    counts[j] = v2v::quantize_events(pot[j], c.tp, c.tn);
+    prev[j] = log_new;
+  }
+}
+
+template <bool kU8, bool kNoise, bool kVec, int kN>
+__global__ void __launch_bounds__(kThreads) esim_kernel(SimArgs a) {
+  using In = typename std::conditional<kU8, uint8_t, float>::type;
+  __shared__ float s_table[256];
+  if (kU8) {
+    for (int k = threadIdx.x; k < 256; k += blockDim.x)
+      s_table[k] = a.table[k];
+    __syncthreads();
+  }
+  const int HW = a.HW, N = a.N;
+  const int per_clip = (HW + kN - 1) / kN;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<long long>(a.B) * per_clip) return;
+  const int b = static_cast<int>(t / per_clip);
+  const int p0 = static_cast<int>(t - static_cast<long long>(b) * per_clip) *
+                 kN;
+  const int valid = min(kN, HW - p0);
+  const In* src = static_cast<const In*>(a.video) +
+                  static_cast<size_t>(b) * N * HW + p0;
+  __nv_bfloat16* dst = a.out + static_cast<size_t>(b) * (N - 1) * HW + p0;
+
+  Clip c;
+  c.tp = a.pos_thres[b];
+  c.tn = a.neg_thres[b];
+  c.std_b = 0.0f;
+  c.seed = 0;
+  float pot[kN], hot[kN], prev[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) pot[j] = hot[j] = 0.0f;
+  if (kNoise) {
+    c.seed = static_cast<uint32_t>(a.seeds[b]);
+    c.std_b = a.noise_std[b];
+    const float frac = a.hot_frac[b];
+    const float hstd = a.hot_std[b];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const uint4 w = v2v::philox_draws(c.seed, p0 + j, 0, v2v::kStreamInit);
+      pot[j] = v2v::uniform01(w.x) * (c.tp + c.tn) - c.tn;
+      const float hv = hstd * v2v::irwin_hall_gaussian(w.z);
+      hot[j] = v2v::uniform01(w.y) < frac ? hv : 0.0f;
+    }
+  }
+  {
+    In raw[kN];
+    load_pixels<kVec>(src, valid, raw);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) prev[j] = log_of(raw[j], s_table);
+  }
+
+  uint4 w[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) w[j] = make_uint4(0u, 0u, 0u, 0u);
+  const int quads = (N - 1) >> 2;  // whole quads of frames
+  In next[4][kN];
+  if (quads > 0) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      load_pixels<kVec>(src + static_cast<size_t>(1 + f) * HW, valid, next[f]);
+  }
+#pragma unroll 1
+  for (int q = 0; q < quads; ++q) {
+    In cur[4][kN];
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int j = 0; j < kN; ++j) cur[f][j] = next[f][j];
+    if (q + 1 < quads) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        load_pixels<kVec>(src + static_cast<size_t>(4 * q + 5 + f) * HW,
+                          valid, next[f]);
+    }
+    if (kNoise) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        w[j] = v2v::philox_draws(c.seed, p0 + j, q, v2v::kStreamNoise);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      float counts[kN];
+      frame_step<kNoise>(cur[f], w, f, s_table, c, pot, prev, hot, counts);
+      store_counts<kVec>(dst + static_cast<size_t>(4 * q + f) * HW, valid,
+                         counts);
+    }
+  }
+  // the last 1-3 frames when N-1 is not a multiple of 4
+  const int rest = (N - 1) - 4 * quads;
+  if (rest > 0) {
+    if (kNoise) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        w[j] = v2v::philox_draws(c.seed, p0 + j, quads, v2v::kStreamNoise);
+    }
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      if (f < rest) {
+        const int i = 4 * quads + 1 + f;
+        In raw[kN];
+        load_pixels<kVec>(src + static_cast<size_t>(i) * HW, valid, raw);
+        float counts[kN];
+        frame_step<kNoise>(raw, w, f, s_table, c, pot, prev, hot, counts);
+        store_counts<kVec>(dst + static_cast<size_t>(i - 1) * HW, valid,
+                           counts);
+      }
+    }
+  }
+}
+
+// K2: sample i is word i & 3 of the call at (i >> 2, 0, kStreamNoise);
+// a thread writes one call's 4 samples.
 __global__ void gaussian_kernel(uint32_t seed, float* __restrict__ out,
                                 long long n) {
-  const long long i =
+  const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  out[i] = v2v::irwin_hall_gaussian(
-      v2v::philox_word(seed, static_cast<uint32_t>(i), 0, v2v::kStreamNoise));
+  const long long i0 = 4 * t;
+  if (i0 >= n) return;
+  const uint4 w = v2v::philox_draws(seed, static_cast<uint32_t>(t), 0,
+                                    v2v::kStreamNoise);
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+    if (i0 + f < n) out[i0 + f] = v2v::irwin_hall_gaussian(v2v::word(w, f));
 }
 
-constexpr int kThreads = 256;
+// Whether kN pixels a thread can load and store as one vector: H*W a
+// multiple of kN and both pointers aligned to the vectors.
+template <int kN>
+bool vector_ok(const SimArgs& a, bool u8) {
+  const uintptr_t in_bytes = static_cast<uintptr_t>(kN) * (u8 ? 1 : 4);
+  return a.HW % kN == 0 &&
+         reinterpret_cast<uintptr_t>(a.video) % in_bytes == 0 &&
+         reinterpret_cast<uintptr_t>(a.out) % (2 * kN) == 0;
+}
+
+template <bool kU8, bool kNoise, bool kVec>
+int start(const SimArgs& a, cudaStream_t s) {
+  const long long total =
+      static_cast<long long>(a.B) * ((a.HW + kPix - 1) / kPix);
+  const unsigned blocks =
+      static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  esim_kernel<kU8, kNoise, kVec, kPix><<<blocks, kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
+// Returns a cudaError_t. `out` is (B, N-1, H, W) bfloat16.
 extern "C" int v2v_simulate_batch(const void* video, int video_is_u8,
                                   const float* table, const int32_t* seeds,
                                   const float* pos_thres,
                                   const float* neg_thres,
                                   const float* noise_std,
                                   const float* hot_frac, const float* hot_std,
-                                  float* out, int B, int N, int H, int W,
+                                  void* out, int B, int N, int H, int W,
                                   int noise_free, void* stream) {
-  const int hw = H * W;
-  const long long threads = static_cast<long long>(B) * hw;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  const SimArgs a{video,     table,     seeds,    pos_thres,
+                  neg_thres, noise_std, hot_frac, hot_std,
+                  static_cast<__nv_bfloat16*>(out), B, N, H * W};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define V2V_LAUNCH(U8, NOISE)                                              \
-  esim_kernel<U8, NOISE><<<blocks, kThreads, 0, s>>>(                      \
-      video, table, seeds, pos_thres, neg_thres, noise_std, hot_frac,      \
-      hot_std, out, B, N, hw)
   if (video_is_u8) {
-    if (noise_free) V2V_LAUNCH(true, false); else V2V_LAUNCH(true, true);
-  } else {
-    if (noise_free) V2V_LAUNCH(false, false); else V2V_LAUNCH(false, true);
+    const bool vec = vector_ok<kPix>(a, true);
+    if (noise_free)
+      return vec ? start<true, false, true>(a, s)
+                 : start<true, false, false>(a, s);
+    return vec ? start<true, true, true>(a, s) : start<true, true, false>(a, s);
   }
-#undef V2V_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = vector_ok<kPix>(a, false);
+  if (noise_free)
+    return vec ? start<false, false, true>(a, s)
+               : start<false, false, false>(a, s);
+  return vec ? start<false, true, true>(a, s) : start<false, true, false>(a, s);
 }
 
 extern "C" int v2v_sample_gaussian(int seed, float* out, long long n,
                                    void* stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  gaussian_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int kGaussThreads = 256;
+  const long long calls = (n + 3) / 4;
+  const unsigned blocks =
+      static_cast<unsigned>((calls + kGaussThreads - 1) / kGaussThreads);
+  gaussian_kernel<<<blocks, kGaussThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t>(seed), out, n);
   return static_cast<int>(cudaGetLastError());
 }

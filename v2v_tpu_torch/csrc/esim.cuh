@@ -5,7 +5,7 @@
 // Rounding: the including sources build with -fmad=false and never with
 // --use_fast_math, so that these match the plain PyTorch versions
 // (v2v_tpu_torch/ops/voxel.py) op for op: no FMA contraction, and IEEE
-// division in floorf(pot / theta).
+// division in floorf(|pot| / theta).
 #pragma once
 
 #include <cstddef>
@@ -34,11 +34,19 @@ __device__ __forceinline__ float load_log(const void* video, size_t i,
 }
 
 // The events this frame fires, positive minus negative, with float
-// floor-division semantics; `pot` keeps the residual.
+// floor-division semantics; `pot` keeps the residual. At most one side
+// can fire (both thresholds are positive), so one IEEE division of |pot|
+// by that side's threshold serves both: |pot| / t is the same bits as
+// pot / tp above and -pot / tn below, so this is the plain version's
+// two-division form (ops/voxel.py::_quantize_events) bit for bit. The
+// residual update is that form's, op for op, and a count is never -0.
 __device__ __forceinline__ float quantize_events(float& pot, float tp,
                                                  float tn) {
-  const float pos_ev = pot >= tp ? floorf(pot / tp) : 0.0f;
-  const float neg_ev = pot <= -tn ? floorf(-pot / tn) : 0.0f;
+  const bool up = pot >= tp;
+  const bool down = pot <= -tn;
+  const float q = floorf(fabsf(pot) / (up ? tp : tn));
+  const float pos_ev = up ? q : 0.0f;
+  const float neg_ev = down ? q : 0.0f;
   pot = pot - pos_ev * tp + neg_ev * tn;
   return pos_ev - neg_ev;
 }

@@ -10,11 +10,12 @@
 // What bounds it: the video read once and the counts written once. At
 // the experiment's shape (B=12, N=201, 128x128, uint8 in, bfloat16 out)
 // that is 39.5 MB + 78.6 MB = 118.2 MB, about 35 us at 3.35 TB/s; the
-// 13 float32 operations a pixel and frame are far below that. On an
-// H100 it takes ~7x that (0.25 ms back to back at kSpp = 1, PERF.md),
+// 12 float32 operations a pixel and frame are far below that. On an
+// H100 it takes ~6x that (0.22 ms back to back at kSpp = 1, PERF.md),
 // with the time growing with the work: it is bound by issued
-// instructions, ~150 a pixel and frame, most of them the Philox draw's
-// 10 rounds of 32x32->64-bit multiplies.
+// instructions, K1's chain a pixel and frame (a quarter of a Philox
+// call, one division: esim.cuh, philox.cuh) with none of K1's sharing
+// of a call's set-up between pixels (esim.cu).
 //
 // Design: one thread per (pixel, group of kSpp clips). Each of the kSpp
 // chains keeps its potential, previous log value, hot noise and
@@ -26,9 +27,10 @@
 // each frame's uint8 reads and bfloat16 writes coalesce across a warp.
 // The TPU kernel's row tile (a VMEM budget) has no counterpart here.
 //
-// Random bits: every draw is K1's, keyed by the clip's own seed with
-// counter (pixel, frame, stream), so the result does not depend on kSpp
-// or the launch shape and the plain PyTorch version reproduces it.
+// Random bits: every draw is K1's, keyed by the clip's own seed in K1's
+// layout (philox.cuh: one call serves a pixel's 4 frames), so the result
+// does not depend on kSpp or the launch shape and the plain PyTorch
+// version reproduces it.
 //
 // Rounding: build with -fmad=false and never --use_fast_math, as K1
 // (esim.cu, esim.cuh): the potential update keeps the plain version's
@@ -72,23 +74,27 @@ __global__ void sim_interleave_kernel(const void* __restrict__ video,
     tn[j] = neg_thres[b];
     std_b[j] = noise_std[b];
     seed[j] = static_cast<uint32_t>(seeds[b]);
-    const float u =
-        v2v::uniform01(v2v::philox_word(seed[j], p, 0, v2v::kStreamInit));
-    pot[j] = u * (tp[j] + tn[j]) - tn[j];
-    hot[j] = kHotStd * v2v::irwin_hall_gaussian(v2v::philox_word(
-                           seed[j], p, 0, v2v::kStreamHotVal));
+    // K1's start-up call: x the initial potential, z the hot value (the
+    // mask, y, is always on here)
+    const uint4 w0 = v2v::philox_draws(seed[j], p, 0, v2v::kStreamInit);
+    pot[j] = v2v::uniform01(w0.x) * (tp[j] + tn[j]) - tn[j];
+    hot[j] = kHotStd * v2v::irwin_hall_gaussian(w0.z);
     in_base[j] = static_cast<size_t>(b) * N * HW + p;
     out_base[j] = static_cast<size_t>(b) * (N - 1) * HW + p;
     prev[j] = v2v::load_log<kU8>(video, in_base[j], table);
   }
+  uint4 w[kSpp];
   for (int i = 1; i < N; ++i) {
+    const int f = (i - 1) & 3;  // the word of this frame's noise
 #pragma unroll
     for (int j = 0; j < kSpp; ++j) {
+      if (f == 0)
+        w[j] = v2v::philox_draws(seed[j], p, (i - 1) >> 2,
+                                 v2v::kStreamNoise);
       const float log_new = v2v::load_log<kU8>(
           video, in_base[j] + static_cast<size_t>(i) * HW, table);
       pot[j] = pot[j] + (log_new - prev[j]);
-      const float g = v2v::irwin_hall_gaussian(v2v::philox_word(
-          seed[j], p, static_cast<uint32_t>(i), v2v::kStreamNoise));
+      const float g = v2v::irwin_hall_gaussian(v2v::word(w[j], f));
       pot[j] = pot[j] + std_b[j] * g;
       pot[j] = pot[j] + hot[j];
       out[out_base[j] + static_cast<size_t>(i - 1) * HW] =

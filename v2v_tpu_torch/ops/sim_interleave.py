@@ -12,7 +12,7 @@ built at first use and loaded with ctypes.
 Where the port differs from the TPU kernel, by design:
 
 - Random bits: every draw is Philox4x32-10 keyed by the clip's own seed
-  with a per-pixel counter (K1's draws, csrc/philox.cuh), where the TPU
+  with a per-pixel counter, in K1's layout (csrc/philox.cuh), where the TPU
   kernel seeds its on-core generator once per group of `spp` clips and
   row tile. So the result depends on neither `spp` nor the launch shape,
   and equals K1's with the hot-pixel fraction above 1 and hot std 0.05.
@@ -61,21 +61,24 @@ def simulate_interleave_plain(video: torch.Tensor, seeds: torch.Tensor,
     b, n, h, w = video.shape
     dev = video.device
     if video.dtype == torch.uint8:
-        logs = vc.log_table(dev)[video.long()]
+        logs = vc.cached_log_table(dev)[video.long()]
     else:
         logs = log_intensity(video)
     col = lambda v: _per_clip(v, b, torch.float32, dev).view(b, 1, 1)
     pos, neg, std = col(pos), col(neg), col(noise)
     seed = _per_clip(seeds, b, torch.int64, dev).view(b, 1, 1) & vc._M32
     pixel = torch.arange(h * w, dtype=torch.int64, device=dev).view(1, h, w)
-    word = lambda frame, stream: vc._philox_word(seed, pixel, frame, stream)
-    pot = vc._uniform01(word(0, vc.STREAM_INIT)) * (pos + neg) - neg
+    u, _, g, _ = vc._philox_draws(seed, pixel, 0, vc.STREAM_INIT)
+    pot = vc._uniform01(u) * (pos + neg) - neg
     hot = torch.tensor(HOT_STD, dtype=torch.float32, device=dev) * \
-        vc._gaussian(word(0, vc.STREAM_HOT_VAL))
+        vc._gaussian(g)
     out = torch.empty((b, n - 1, h, w), dtype=torch.bfloat16, device=dev)
     for i in range(1, n):
+        if (i - 1) % 4 == 0:
+            words = vc._philox_draws(seed, pixel, (i - 1) // 4,
+                                     vc.STREAM_NOISE)
         pot = pot + (logs[:, i] - logs[:, i - 1])
-        pot = pot + std * vc._gaussian(word(i, vc.STREAM_NOISE))
+        pot = pot + std * vc._gaussian(words[(i - 1) % 4])
         pot = pot + hot
         counts, pot = _quantize_events(pot, pos, neg)
         out[:, i - 1] = counts.to(torch.bfloat16)
@@ -106,10 +109,10 @@ def simulate_interleave(video: torch.Tensor, seeds: torch.Tensor, pos, neg,
     video = video.contiguous()
     seeds = seeds.to(torch.int32).contiguous()
     prm = [_per_clip(v, b, torch.float32, dev) for v in (pos, neg, noise)]
-    table = vc.log_table(dev)
     out = torch.empty((b, n - 1, h, w), dtype=torch.bfloat16, device=dev)
     err = LIB.get().v2v_simulate_interleave(
-        video.data_ptr(), int(video.dtype == torch.uint8), table.data_ptr(),
+        video.data_ptr(), int(video.dtype == torch.uint8),
+        vc.cached_log_table(dev).data_ptr(),
         seeds.data_ptr(), *(v.data_ptr() for v in prm), out.data_ptr(),
         b, n, h, w, spp, _stream())
     _check(err, "simulate_interleave")

@@ -10,8 +10,9 @@ first use (ops/_build.py) and loaded with ctypes.
 A wrapper given CUDA tensors launches its kernel (and adds one to its
 `launches` count) or raises; it takes the plain version only for CPU
 tensors. The plain versions draw the same Philox4x32-10 bits, written in
-int64 tensor arithmetic, so kernel and plain version agree bit for bit,
-noise included.
+int64 tensor arithmetic, in the same layout (csrc/philox.cuh: every word
+of a call is used), so kernel and plain version agree bit for bit, noise
+included. K1 writes bfloat16 counts, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from ._build import CudaLibrary, check as _check, stream as _stream
 from .voxel import SimParams, _quantize_events, log_intensity
 
 # Philox stream ids (csrc/philox.cuh)
-STREAM_INIT, STREAM_HOT_MASK, STREAM_HOT_VAL, STREAM_NOISE = 0, 1, 2, 3
+STREAM_INIT, STREAM_NOISE = 0, 1
 
 _M32 = 0xFFFFFFFF
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -78,12 +79,12 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def _philox_word(seed, pixel, frame: int, stream: int) -> torch.Tensor:
-    """First Philox word at counter (pixel, frame, stream, 0), key
-    (seed, 0) — csrc/philox.cuh::philox_word."""
-    zero = torch.zeros((), dtype=torch.int64, device=pixel.device)
-    return philox4x32_10(pixel, zero + frame, zero + stream, zero,
-                         zero + seed, zero)[0]
+def _philox_draws(seed, c0: torch.Tensor, c1: int, stream: int):
+    """The four Philox words at counter (c0, c1, stream, 0), key
+    (seed, 0) — csrc/philox.cuh::philox_draws."""
+    zero = torch.zeros((), dtype=torch.int64, device=c0.device)
+    return philox4x32_10(c0, zero + c1, zero + stream, zero, zero + seed,
+                         zero)
 
 
 def _uniform01(w: torch.Tensor) -> torch.Tensor:
@@ -105,8 +106,11 @@ def _gaussian(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def sample_gaussian_plain(seed: int, n: int, device) -> torch.Tensor:
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    return _gaussian(_philox_word(seed & _M32, idx, 0, STREAM_NOISE))
+    """Sample i is word i & 3 of the call at (i >> 2, 0, STREAM_NOISE)."""
+    calls = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    words = torch.stack(_philox_draws(seed & _M32, calls, 0, STREAM_NOISE),
+                        dim=1)
+    return _gaussian(words.reshape(-1)[:n])
 
 
 def sample_gaussian(seed: int, shape=(256, 256), device=None
@@ -139,6 +143,17 @@ def log_table(device) -> torch.Tensor:
                                       device=device))
 
 
+_LOG_TABLES: dict = {}
+
+
+def cached_log_table(device) -> torch.Tensor:
+    """`log_table(device)`, computed once per device and kept."""
+    device = torch.device(device)
+    if device not in _LOG_TABLES:
+        _LOG_TABLES[device] = log_table(device)
+    return _LOG_TABLES[device]
+
+
 def _batch_params(params: SimParams, b: int, device) -> SimParams:
     return SimParams(*(torch.as_tensor(v, dtype=torch.float32,
                                        device=device).expand(b).contiguous()
@@ -149,12 +164,13 @@ def simulate_batch_plain(video: torch.Tensor, seeds: torch.Tensor,
                          params: SimParams, *, noise_free: bool = False
                          ) -> torch.Tensor:
     """K1's plain version: (B, N, H, W) uint8/float32 video, (B,) int32
-    seeds, SimParams of (B,) -> (B, N-1, H, W) float32 counts, with the
-    kernel's Philox draws."""
+    seeds, SimParams of (B,) -> (B, N-1, H, W) bfloat16 counts, with the
+    kernel's Philox draws; computed in float32 and rounded to bfloat16 to
+    nearest even, as the TPU kernel's astype."""
     b, n, h, w = video.shape
     dev = video.device
     if video.dtype == torch.uint8:
-        logs = log_table(dev)[video.long()]
+        logs = cached_log_table(dev)[video.long()]
     else:
         logs = log_intensity(video)
     prm = _batch_params(params, b, dev)
@@ -167,21 +183,23 @@ def simulate_batch_plain(video: torch.Tensor, seeds: torch.Tensor,
         seed = col(seeds.to(torch.int64) & _M32)
         pixel = torch.arange(h * w, dtype=torch.int64,
                              device=dev).view(1, h, w)
-        u = _uniform01(_philox_word(seed, pixel, 0, STREAM_INIT))
-        pot = u * (pos + neg) - neg
-        um = _uniform01(_philox_word(seed, pixel, 0, STREAM_HOT_MASK))
-        hv = col(prm.hot_pixel_std) * _gaussian(
-            _philox_word(seed, pixel, 0, STREAM_HOT_VAL))
-        hot = torch.where(um < col(prm.hot_pixel_fraction), hv, 0.0)
+        u, um, g, _ = _philox_draws(seed, pixel, 0, STREAM_INIT)
+        pot = _uniform01(u) * (pos + neg) - neg
+        hv = col(prm.hot_pixel_std) * _gaussian(g)
+        hot = torch.where(_uniform01(um) < col(prm.hot_pixel_fraction), hv,
+                          0.0)
         std = col(prm.base_noise_std)
-    out = torch.empty((b, n - 1, h, w), dtype=torch.float32, device=dev)
+    out = torch.empty((b, n - 1, h, w), dtype=torch.bfloat16, device=dev)
     for i in range(1, n):
         pot = pot + (logs[:, i] - logs[:, i - 1])
         if hot is not None:
-            g = _gaussian(_philox_word(seed, pixel, i, STREAM_NOISE))
-            pot = pot + std * g
+            if (i - 1) % 4 == 0:
+                words = _philox_draws(seed, pixel, (i - 1) // 4,
+                                      STREAM_NOISE)
+            pot = pot + std * _gaussian(words[(i - 1) % 4])
             pot = pot + hot
-        out[:, i - 1], pot = _quantize_events(pot, pos, neg)
+        counts, pot = _quantize_events(pot, pos, neg)
+        out[:, i - 1] = counts.to(torch.bfloat16)
     return out
 
 
@@ -189,7 +207,7 @@ def simulate_batch(video: torch.Tensor, seeds: torch.Tensor,
                    params: SimParams, *, noise_free: bool = False
                    ) -> torch.Tensor:
     """(B, N, H, W) uint8 or float32 video + (B,) int32 seeds + per-sample
-    SimParams -> (B, N-1, H, W) float32 signed event counts. Launches K1
+    SimParams -> (B, N-1, H, W) bfloat16 signed event counts. Launches K1
     for CUDA tensors, runs the plain version for CPU tensors."""
     if video.dtype not in (torch.uint8, torch.float32):
         video = video.to(torch.float32)
@@ -206,12 +224,12 @@ def simulate_batch(video: torch.Tensor, seeds: torch.Tensor,
     video = video.contiguous()
     seeds = seeds.to(torch.int32).contiguous()
     prm = _batch_params(params, b, dev)
-    table = log_table(dev)
-    out = torch.empty((b, n - 1, h, w), dtype=torch.float32, device=dev)
+    out = torch.empty((b, n - 1, h, w), dtype=torch.bfloat16, device=dev)
     err = _load().v2v_simulate_batch(
-        video.data_ptr(), int(video.dtype == torch.uint8), table.data_ptr(),
-        seeds.data_ptr(), *(v.data_ptr() for v in prm), out.data_ptr(),
-        b, n, h, w, int(noise_free), _stream())
+        video.data_ptr(), int(video.dtype == torch.uint8),
+        cached_log_table(dev).data_ptr(), seeds.data_ptr(),
+        *(v.data_ptr() for v in prm), out.data_ptr(), b, n, h, w,
+        int(noise_free), _stream())
     _check(err, "simulate_batch")
     simulate_batch.launches += 1
     return out

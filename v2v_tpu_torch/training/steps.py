@@ -29,8 +29,10 @@ def bin_and_select(counts: torch.Tensor, video: torch.Tensor,
                    num_bins: int, frames_per_bin: int,
                    extra_frame: bool = False, extra_evs: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, N-1, H, W) counts -> events (B,G,H,W,bins) NHWC, and GT frames
-    (B,F,H,W,1) in [0, 1] picked from the video.
+    """(B, N-1, H, W) counts (K1's bfloat16, or float32) -> float32
+    events (B,G,H,W,bins) NHWC, and GT frames (B,F,H,W,1) in [0, 1]
+    picked from the video. The bins are summed in float32 straight from
+    the counts, with no float32 copy of them.
 
     Default: G = F = L, frame i is video[(i+1)*fpi]. extra_frame: F = L+1
     frames at i*fpi. extra_evs: the video carries fpi extra leading
@@ -38,7 +40,8 @@ def bin_and_select(counts: torch.Tensor, video: torch.Tensor,
     b, n1, h, w = counts.shape
     fpi = num_bins * frames_per_bin
     groups = n1 // fpi
-    voxels = counts.reshape(b, groups, num_bins, frames_per_bin, h, w).sum(3)
+    voxels = counts.reshape(b, groups, num_bins, frames_per_bin, h,
+                            w).sum(3, dtype=torch.float32)
     events = voxels.permute(0, 1, 3, 4, 2)
     base = fpi if extra_evs else 0
     n_frames = groups - (1 if extra_evs else 0)
