@@ -29,7 +29,14 @@ Phases, one line each, any failure exits non-zero:
      yaml) at full width with a random LPIPS trunk and a random
      RAFT-small teacher, `--steps` train steps from uint8 video; K1's
      launch count must equal the step count
-  8. eval reference: full-width ETNet on two 64x64 sequences of 3 frames
+  7b. the train driver: the flagship config through the port's
+     training/train.py::main for 2 epochs of 3 batches on seeded stand-in
+     clips (no cv2 there to decode WebVid) with validation on 2 synthetic
+     128x128 sequences, checkpoints and the ckpt_paths file in a temp
+     root; then 1 more epoch, resumed from epoch_0001.pth with the Adam
+     state. K1 must launch once a driver step (9); the checkpoints, the
+     val losses and the resume are checked
+ 8. eval reference: full-width ETNet on two 64x64 sequences of 3 frames
      with chunk_threshold forced to 16, card (K3) against CPU (plain)
   9. the eval slice: configs/test_etnet_original.yaml's ETNet through
      the port's run_test on two synthetic 720x1280 sequences of 8
@@ -242,6 +249,13 @@ K1_SHAPE = (12, 201, 128, 128)
 CROP_HW = (180, 240)
 K1_RAGGED = (2, 9, 7, 9)
 FLAGSHIP_PARAMS = 10_710_401
+# the [driver] phase: epochs before the resume, stand-in clips (3 batches
+# of 12 an epoch) and events a frame of its 128x128 val sequences (EVAID's
+# density of 400,000 a 720x1280 frame, over 128x128)
+DRIVER_EPOCHS = 2
+DRIVER_BATCHES = 3
+DRIVER_ITEMS = 36
+DRIVER_VAL_EVENTS = 7_000
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores
@@ -1109,7 +1123,8 @@ def phase_slice(torch, dev, seed, steps, profile=False, module=None,
     LPIPS trunk and a random RAFT-small teacher, `steps` train steps from
     uint8 video; K1 must launch once a step. With `hyper_beta` (the
     HyperE2VID config) K4 and its gradient must launch once a time step
-    each and the BatchNorm running statistics must move."""
+    each and the BatchNorm running statistics must move. Returns the
+    launches and the median ms/step after the first step."""
     from v2v_tpu_torch.losses.lpips import LPIPS
     from v2v_tpu_torch.training.interface import (ModelInterface,
                                                   aggregate_per_source)
@@ -1192,17 +1207,211 @@ def phase_slice(torch, dev, seed, steps, profile=False, module=None,
     if profile:
         _profile(torch, f"{tag}-profile", lambda: step(batch, g, **kw))
     after_first = times[1:] or times
-    _log(f"[{tag}] ms/step after the first: "
-         f"{statistics.median(after_first):.1f} (all: "
+    ms = statistics.median(after_first)
+    _log(f"[{tag}] ms/step after the first: {ms:.1f} (all: "
          f"{', '.join(f'{x:.1f}' for x in times)}); max_memory_allocated "
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+         f"{launches}")
+    return launches, ms
+
+
+class _DriftingClips:
+    """A seeded stand-in for the WebVid train set, in WebvidDataset's
+    output="video" item contract: {"video": uint8 (N, H, W),
+    "data_source_idx": int64}, N = sequence_length * num_bins *
+    frames_per_bin + 1 and H = W = crop_size of the data config. Each clip
+    is a random texture drifting by a random sub-pixel velocity a frame,
+    with slow brightness changes, made in numpy on the host from `seed`
+    and the index: the host twin of _drifting_video. It stands in for mp4
+    decode, which the card's machine cannot run (no cv2)."""
+
+    def __init__(self, data_cfg, seed, n_items):
+        self.data_cfg, self.seed, self.n_items = data_cfg, seed, n_items
+
+    def __len__(self):
+        return self.n_items
+
+    def __getitem__(self, idx):
+        import numpy as np
+        from v2v_tpu_torch.data.sources import DATA_SOURCES
+        c = self.data_cfg
+        n = c["sequence_length"] * c["num_bins"] * c.get("frames_per_bin",
+                                                         1) + 1
+        h = w = c["crop_size"]
+        rng = np.random.default_rng((self.seed, idx))
+        tex = np.pad(rng.random((2 * h, 2 * w)), 1, mode="edge")
+        tex = sum(tex[i:i + 2 * h, j:j + 2 * w]
+                  for i in range(3) for j in range(3)) / 9.0
+        tex = np.clip((tex - 0.5) * 3.0 + 0.5, 0.0, 1.0) * 255.0
+        vel = (rng.random(2) - 0.5) * 2.0
+        pad = int(np.ceil(n * np.abs(vel).max())) + 2
+        tex = np.pad(tex, pad, mode="reflect")
+        frames = np.empty((n, h, w), np.float32)
+        for t in range(n):
+            oy, ox = t * vel + (h / 2 + pad, w / 2 + pad)
+            iy, ix = int(np.floor(oy)), int(np.floor(ox))
+            fy, fx = oy - iy, ox - ix
+            a = tex[iy:iy + h + 1, ix:ix + w + 1]
+            f = ((1 - fy) * ((1 - fx) * a[:-1, :-1] + fx * a[:-1, 1:])
+                 + fy * ((1 - fx) * a[1:, :-1] + fx * a[1:, 1:]))
+            frames[t] = f * (1.0 + 0.3 * np.sin(t / 17.0 + idx))
+        return {"data_source_idx": np.int64(DATA_SOURCES.index(
+                    c["data_source_name"])),
+                "video": np.clip(frames, 0, 255).round().astype(np.uint8)}
+
+
+class _Tee:
+    """A stream that writes to each of `streams`."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def phase_driver(torch, dev, seed, slice_ms):
+    """The flagship config (full width, random LPIPS-VGG trunk and
+    RAFT-small teacher, bf16, Adam with amsgrad, StepLR) through the
+    port's train driver, training/train.py::main, rooted in a temp dir:
+    DRIVER_EPOCHS epochs of DRIVER_BATCHES batches on _DriftingClips, each
+    validated on two synthetic 128x128 sequences of the val config's
+    length and checkpointed; then one more epoch, resumed from the last
+    checkpoint with the Adam state. K1 must launch once a driver step;
+    the ckpt_paths file, val_loss.txt, the losses, load_params_only of the
+    last checkpoint and the resume are checked. Prints the driver's
+    ms/step beside the [slice] phase's, the host's wait on the loader a
+    step, checkpoint time and bytes, and the peak memory."""
+    import contextlib
+    import copy
+    import io
+    import shutil
+    from v2v_tpu_torch.config import instantiate_from_config
+    from v2v_tpu_torch.data.interface import ConcatDataset
+    from v2v_tpu_torch.models.init import materialize
+    from v2v_tpu_torch.training import train
+    from v2v_tpu_torch.training.checkpoint import (all_ckpt_paths,
+                                                   load_params_only)
+    stage = copy.deepcopy(FLAGSHIP_STAGE)
+    stage["max_epochs"] = DRIVER_EPOCHS
+    exp = "chip_smoke_driver"
+    cfg = {"experiment_name": exp, "seed": seed,
+           "check_val_every_n_epoch": 1,
+           "module": copy.deepcopy(FLAGSHIP_MODULE), "train_stages": [stage]}
+    data_cfg = stage["dataset"]["train"][0]
+    hw = data_cfg["crop_size"]
+    train_ds = _DriftingClips(data_cfg, seed, DRIVER_ITEMS)
+    val_cfg = stage["dataset"]["val"][0]              # evaid, image_range 1
+    val_ds = ConcatDataset([
+        _SyntheticSequence(f"val{i}", seed + 30 + i,
+                           val_cfg["sequence_length"], (hw, hw),
+                           DRIVER_VAL_EVENTS, val_cfg) for i in range(2)])
+    root = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    env = {"V2V_RANDOM_TEACHER": "1",
+           "V2V_WEIGHTS_DIR": os.path.join(root, "no_weights")}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    _log(f"[driver] {exp}: the flagship config, {DRIVER_EPOCHS} epochs of "
+         f"{DRIVER_BATCHES} batches of {stage['dataset']['train_batch_size']}"
+         f" stand-in clips, then 1 resumed epoch; val on 2 sequences of "
+         f"{val_cfg['sequence_length']} frames at {hw}x{hw}; root {root}")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        runs = [train.main(cfg, DRIVER_BATCHES, root, dev, train_ds, val_ds)]
+        stage["max_epochs"] = DRIVER_EPOCHS + 1
+        log = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, log)):
+            runs.append(train.main(cfg, DRIVER_BATCHES, root, dev, train_ds,
+                                   val_ds))
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = DRIVER_BATCHES * (DRIVER_EPOCHS + 1)
+        _require(launches["simulate_batch"] == steps,
+                 f"driver: K1 launched {launches['simulate_batch']} times in "
+                 f"{steps} driver steps")
+        paths = all_ckpt_paths(exp, root)
+        _require(len(paths) == DRIVER_EPOCHS + 1 and paths[-1].endswith(
+            f"epoch_{DRIVER_EPOCHS:04d}.pth"),
+            f"driver: ckpt_paths holds {paths}")
+        with open(os.path.join(root, "tensorboard_logs", exp,
+                               "val_loss.txt")) as f:
+            val = [float(line.rsplit(": ", 1)[1]) for line in f
+                   if line.strip()]
+        _require(len(val) == DRIVER_EPOCHS + 1
+                 and all(math.isfinite(v) for v in val),
+                 f"driver: val_loss.txt holds {val}")
+        losses = {e: v for r in runs for e, v in r["losses"].items()}
+        _require(sorted(losses) == list(range(DRIVER_EPOCHS + 1))
+                 and all(len(v) == DRIVER_BATCHES and all(map(math.isfinite,
+                                                              v))
+                         for v in losses.values()),
+                 f"driver: losses {losses}")
+        printed = {int(m) for m in re.findall(r"^Stage \d+, epoch (\d+):",
+                                              log.getvalue(), re.M)}
+        _require(printed == {DRIVER_EPOCHS}
+                 and f"epoch_{DRIVER_EPOCHS - 1:04d}.pth at epoch "
+                     f"{DRIVER_EPOCHS}" in log.getvalue()
+                 and "Restored the optimizer state" in log.getvalue(),
+                 f"driver: the resumed run printed epochs {sorted(printed)}")
+        last = runs[-1]
+        adam_steps = {float(st["step"]) for st in
+                      last["optimizer"].state.values()}
+        _require(adam_steps == {float(steps)},
+                 f"driver: Adam's step counts after the resume {adam_steps}, "
+                 f"want {steps}")
+        fresh = materialize(
+            lambda: instantiate_from_config(cfg["module"]["model"]), dev,
+            torch.Generator(device=dev).manual_seed(seed + 99))
+        load_params_only(paths[-1], fresh)
+        final = last["model"].state_dict()
+        _require(all(torch.equal(v, final[k])
+                     for k, v in fresh.state_dict().items()),
+                 "driver: load_params_only of the last checkpoint differs "
+                 "from the driver's final parameters")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    step_ms = [r["timings"]["step_ms"] for r in runs]
+    wait_ms = [x for r in runs for x in r["timings"]["loader_wait_ms"]]
+    after_first = [x for ms in step_ms for x in ms[1:]]
+    ckpt_s = [x for r in runs for x in r["timings"]["checkpoint_s"]]
+    ckpt_b = [x for r in runs for x in r["timings"]["checkpoint_bytes"]]
+    _log(f"[driver] losses by epoch: " + "; ".join(
+        f"{e}: {', '.join(f'{x:.5f}' for x in v)}"
+        for e, v in sorted(losses.items())) + f"; val losses "
+        f"{', '.join(f'{v:.5f}' for v in val)}")
+    _log(f"[driver] ms/step through the driver, median after each run's "
+         f"first step: {statistics.median(after_first):.1f} (all: "
+         + " | ".join(", ".join(f"{x:.1f}" for x in ms) for ms in step_ms)
+         + f"); the [slice] phase's step alone {slice_ms:.1f}")
+    _log(f"[driver] host wait on the loader and the prefetch a step (ms): "
+         f"median {statistics.median(wait_ms):.2f}, max {max(wait_ms):.2f} "
+         f"(all: {', '.join(f'{x:.2f}' for x in wait_ms)})")
+    _log(f"[driver] checkpoints: {len(ckpt_s)} saved, "
+         f"{', '.join(f'{s:.3f}' for s in ckpt_s)} s, "
+         f"{', '.join(str(b) for b in ckpt_b)} bytes; max_memory_allocated "
+         f"{peak:.2f} GiB; resumed from epoch_{DRIVER_EPOCHS - 1:04d}.pth "
+         f"at epoch {DRIVER_EPOCHS} with Adam at step {steps}; launches "
          f"{launches}")
     return launches
 
 
 class _SyntheticSequence:
     """One sequence of `frames` frames held in memory, in the sample
-    contract of TestH5Dataset (frame (T,H,W,1) in [0,255], events
+    contract of TestH5Dataset (frame (T,H,W,1) in [0,255], or [0,1] where
+    the data config's image_range is 1, events
     (T,H,W,bins)): a drifting texture as GT and uniform random events at
     a fixed rate, both from numpy with `seed`, voxelized on the host by
     the port's events_to_voxel_np with the data config's settings. It
@@ -1236,8 +1445,9 @@ class _SyntheticSequence:
                 rng.integers(0, 2, n).astype(np.uint8),
                 num_bins=self.data_cfg["num_bins"], height=h, width=w,
                 interpolate_bins=self.data_cfg["interpolate_bins"]))
+        scale = 255.0 if self.data_cfg.get("image_range", 255) == 1 else 1.0
         return {
-            "frame": np.stack(frames)[..., None].astype(np.float32),
+            "frame": (np.stack(frames)[..., None] / scale).astype(np.float32),
             "events": np.stack(voxels).transpose(0, 2, 3, 1).astype(
                 np.float32),
             "data_source_idx": np.int64(DATA_SOURCES.index(
@@ -1424,8 +1634,10 @@ def main(argv=None) -> int:
         k4 = phase_k4(torch, dev, args.seed)
         k4_bwd = phase_k4_backward(torch, dev, args.seed)
         phase_reference(torch, dev, args.seed)
-        paths = {"slice": phase_slice(torch, dev, args.seed, args.steps,
-                                      args.profile)}
+        paths = {}
+        paths["slice"], slice_ms = phase_slice(torch, dev, args.seed,
+                                               args.steps, args.profile)
+        paths["driver"] = phase_driver(torch, dev, args.seed, slice_ms)
         from v2v_tpu_torch.models.eitr import MultiheadAttention
         old = MultiheadAttention.chunk_threshold
         MultiheadAttention.chunk_threshold = 16
@@ -1441,7 +1653,7 @@ def main(argv=None) -> int:
             "dynamic_shift_sum", 1, "hyper-eval", sigmoid_output=False)
         phase_reference(torch, dev, args.seed, HYPER_TRAIN_MODULE,
                         "hyper-reference", hyper_beta=0.7)
-        paths["hyper-train"] = phase_slice(
+        paths["hyper-train"], _ = phase_slice(
             torch, dev, args.seed, args.steps, args.profile,
             HYPER_TRAIN_MODULE, HYPER_TRAIN_STAGE, HYPER_PARAMS,
             "hyper-train", HYPER_BETA)

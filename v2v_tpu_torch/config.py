@@ -19,6 +19,8 @@ TARGET_ALIASES: Dict[str, str] = {
     "torch.optim.Adam": "v2v_tpu_torch.training.optim.Adam",
     "torch.optim.lr_scheduler.StepLR": "v2v_tpu_torch.training.optim.StepLR",
     "data.testh5.TestH5Dataset": "v2v_tpu_torch.data.h5.TestH5Dataset",
+    "data.v2v_datasets.WebvidDatasetV2":
+        "v2v_tpu_torch.data.webvid.WebvidDataset",
 }
 
 

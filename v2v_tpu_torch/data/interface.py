@@ -1,11 +1,11 @@
-"""Dataset composition and a thread-prefetching loader (port of
-v2v_tpu/data/interface.py for the test path).
+"""Dataset composition and a prefetching batch loader (port of
+v2v_tpu/data/interface.py).
 
 File-of-paths -> concat of per-file datasets; list-of-configs -> concat
-of concats (reference data/data_interface.py:6-21). The loader keeps
-the dataset's order (test sets are never shuffled), collates numpy
-batches, and builds them on worker threads, which is safe for datasets
-that open h5 files per item.
+of concats (reference data/data_interface.py:6-21). The loader keeps the
+dataset's order unless asked to shuffle (test sets never are; the train
+driver shuffles with a per-epoch seed), collates numpy batches, and
+builds them on worker threads or processes.
 """
 from __future__ import annotations
 
@@ -31,6 +31,13 @@ class ConcatDataset:
         ds_idx = bisect.bisect_right(self.cum, idx)
         prev = self.cum[ds_idx - 1] if ds_idx > 0 else 0
         return self.datasets[ds_idx][idx - prev]
+
+    def set_epoch(self, seed) -> None:
+        """Pass a per-epoch seed on to the members that draw, each member
+        with its position appended, so no two members share a stream."""
+        for k, d in enumerate(self.datasets):
+            if hasattr(d, "set_epoch"):
+                d.set_epoch(tuple(np.atleast_1d(seed)) + (k,))
 
 
 def read_path_list(data_file: str) -> List[str]:
@@ -68,29 +75,68 @@ def collate(items: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class DataLoader:
-    """In-order batches of `dataset`, built by `num_workers` threads with
-    at most `prefetch` batches waiting."""
+    """Batches of `dataset`, built by `num_workers` workers with at most
+    `prefetch` batches waiting, in the order of `_indices`.
 
-    def __init__(self, dataset, batch_size: int, drop_last: bool = False,
-                 num_workers: int = 4, prefetch: int = 4):
+    `shuffle` permutes the indices with `RandomState(seed + epoch)`
+    (`set_epoch`), as the JAX package's loader does, and `process_index`
+    / `process_count` take every process_count-th of them (the
+    DistributedSampler's split). A dataset with `set_epoch` receives
+    `seed + epoch` before each pass, for the items' own draws.
+
+    worker_type:
+      * "thread": shared memory, safe for datasets that hold open file
+        handles (h5). cv2 releases the GIL while it decodes; the numpy
+        crop and collate work serializes.
+      * "process": spawned worker processes, for decode-heavy video. The
+        dataset is pickled to each worker at the start of a pass.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, num_workers: int = 4,
+                 seed: int = 0, process_index: int = 0,
+                 process_count: int = 1, prefetch: int = 4,
+                 worker_type: str = "thread"):
+        if worker_type not in ("thread", "process"):
+            raise ValueError(f"worker_type {worker_type!r}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         self.prefetch = prefetch
+        self.worker_type = worker_type
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        return idx[self.process_index::self.process_count]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._indices())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        n = len(self.dataset)
-        batches = [range(i * self.batch_size,
-                         min(n, (i + 1) * self.batch_size))
-                   for i in range(len(self))]
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(self.seed + self.epoch)
+        indices = self._indices()
+        batches = [[int(i) for i in
+                    indices[k * self.batch_size:(k + 1) * self.batch_size]]
+                   for k in range(len(self))]
         if self.num_workers <= 1:
             for idx in batches:
                 yield collate([self.dataset[i] for i in idx])
+            return
+        if self.worker_type == "process":
+            yield from self._process_iter(batches)
             return
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -143,3 +189,61 @@ class DataLoader:
                     break
             for t in threads:
                 t.join(timeout=5)
+
+    def _process_iter(self, batches: List[List[int]]
+                      ) -> Iterator[Dict[str, Any]]:
+        """Spawned workers collate whole batches and send them back
+        through a queue; the consumer restores the batch order, so a pass
+        yields what the thread and serial paths yield."""
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        nw = min(self.num_workers, len(batches))
+        task_q = ctx.Queue()
+        out_q = ctx.Queue(maxsize=max(2, self.prefetch))
+        for pos, idx in enumerate(batches):
+            task_q.put((pos, idx))
+        for _ in range(nw):
+            task_q.put(None)
+        procs = [ctx.Process(target=_process_worker,
+                             args=(self.dataset, task_q, out_q), daemon=True)
+                 for _ in range(nw)]
+        for p in procs:
+            p.start()
+        try:
+            results: Dict[int, Any] = {}
+            next_pos = 0
+            for _ in range(len(batches)):
+                pos, batch, err = out_q.get()
+                if err is not None:
+                    raise RuntimeError(f"loader worker failed: {err}")
+                results[pos] = batch
+                while next_pos in results:
+                    yield results.pop(next_pos)
+                    next_pos += 1
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            for p in procs:
+                p.join(timeout=5)
+
+
+def _process_worker(dataset, task_q, out_q) -> None:
+    """A spawned loader worker: collate the batches of `task_q` until its
+    None, each into `out_q` as (pos, batch, None) or (pos, None,
+    traceback)."""
+    try:
+        import cv2
+        cv2.setNumThreads(1)        # one decode thread a process
+    except ImportError:
+        pass
+    while True:
+        item = task_q.get()
+        if item is None:
+            return
+        pos, idx = item
+        try:
+            out_q.put((pos, collate([dataset[i] for i in idx]), None))
+        except Exception as e:
+            import traceback
+            out_q.put((pos, None, f"{e!r}\n{traceback.format_exc()}"))

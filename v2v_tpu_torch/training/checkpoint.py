@@ -1,21 +1,73 @@
-"""The `ckpt_paths` protocol and params-only loading (port of the part of
-v2v_tpu/training/checkpoint.py that the eval harness uses).
+"""Checkpoints and the `ckpt_paths` protocol (port of
+v2v_tpu/training/checkpoint.py).
 
 Training appends each saved path to `ckpt_paths/{experiment}.txt`;
 resume and tests load the LAST line (reference README.md:9-13,
-train.py:176-222). The port reads torch checkpoints: a `{"state_dict":
-...}` file or a bare state_dict, as the reference saves them. The JAX
-package's msgpack checkpoints are not read here.
+train.py:176-222). A checkpoint is the reference's torch layout
+`{"state_dict", "epoch", "optimizer", "lr_scheduler"}` (train.py:146-151),
+with the optimizer's and the scheduler's `state_dict()` in place of the
+pickled objects. BatchNorm running statistics travel in `state_dict`.
+`load_params_only` also reads a bare state_dict. The JAX package's
+msgpack checkpoints are not read here.
 """
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from ..models.convert import _strip_wrappers
+
+
+def save_checkpoint(path: str, model: nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer], epoch: int,
+                    scheduler: Any = None) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({
+        "state_dict": model.state_dict(),
+        "epoch": epoch,
+        "optimizer": None if optimizer is None else optimizer.state_dict(),
+        "lr_scheduler": None if scheduler is None else scheduler.state_dict(),
+    }, path)
+
+
+def load_checkpoint(path: str, model: nn.Module) -> Dict[str, Any]:
+    """Load a checkpoint's weights into `model` (every key must match, up
+    to the `module.` / `_orig_mod.` prefixes) and return the rest of it:
+    `epoch`, `optimizer` and `lr_scheduler` states, for
+    `load_optimizer_state` and the scheduler's `load_state_dict`."""
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    model.load_state_dict({_strip_wrappers(k): v
+                           for k, v in saved["state_dict"].items()})
+    return {k: saved.get(k) for k in ("epoch", "optimizer", "lr_scheduler")}
+
+
+def _group_layout(groups) -> List[tuple]:
+    """What a saved optimizer state must share with an optimizer to fit
+    it: per param group, its parameter count, its option names (they name
+    the optimizer's kind) and amsgrad (it adds a moment)."""
+    return [(len(g["params"]), sorted(k for k in g if k != "params"),
+             g.get("amsgrad")) for g in groups]
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state: Optional[Dict[str, Any]]) -> bool:
+    """Restore a saved optimizer state (its moments and step counts) when
+    its param groups fit `optimizer`'s, keeping `optimizer`'s own options
+    (the stage's config); otherwise leave it fresh, as the JAX driver
+    drops an optimizer state of another structure (train.py:266-270).
+    Returns whether the state was restored."""
+    if not state or _group_layout(state["param_groups"]) != _group_layout(
+            optimizer.param_groups):
+        return False
+    options = [{k: v for k, v in g.items() if k != "params"}
+               for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, opts in zip(optimizer.param_groups, options):
+        group.update(opts)
+    return True
 
 
 def load_params_only(path: str, model: nn.Module) -> nn.Module:

@@ -220,10 +220,13 @@ class ModelInterface:
                 d.append(dist(p, *gf))
         return torch.stack(d).reshape(t, b).T.mean(dim=1)
 
-    def calc_loss(self, pred: torch.Tensor, batch: Dict[str, torch.Tensor]
+    def calc_loss(self, pred: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  remove_flow_loss: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(scalar loss, dict of per-sample (B,) terms + pred stats). Every
-        term averages over T, then the terms are weight-summed."""
+        term averages over T, then the terms are weight-summed.
+        `remove_flow_loss` drops the temporal-consistency term, as
+        validation does (the h5 val sets carry no flow)."""
         cfg = self.loss_cfg
         frames = batch["frame"]
         b, t = pred.shape[:2]
@@ -237,7 +240,8 @@ class ModelInterface:
             terms["perceptual_loss"] = cfg.lpips_weight * self._lpips_term(
                 pred, frames)
         l0 = cfg.temporal_consistency_L0
-        if cfg.temporal_consistency_weight and t > l0:
+        if cfg.temporal_consistency_weight and not remove_flow_loss and \
+                t > l0:
             flat = lambda x: x.reshape(b * (t - l0), *x.shape[2:])
             tc = L.temporal_consistency_loss(
                 flat(frames[:, l0 - 1:-1]), flat(frames[:, l0:]),

@@ -9,7 +9,7 @@ the two agree on the first step.
 """
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Any, Dict, Iterable
 
 import torch
 
@@ -31,7 +31,10 @@ class Adam:
 
 class StepLR:
     """epoch -> lr multiplier gamma^(epoch // step_size) (torch steps the
-    scheduler once per epoch, reference train.py:140)."""
+    scheduler once per epoch, reference train.py:140). It keeps the JAX
+    package's Scheduler protocol, which the train driver calls:
+    `observe(val_loss)` after each validation, `state_dict()` into the
+    checkpoint and `load_state_dict` on resume; StepLR is stateless."""
 
     def __init__(self, step_size: int, gamma: float = 0.1, **_):
         self.step_size = step_size
@@ -39,3 +42,12 @@ class StepLR:
 
     def __call__(self, epoch: int) -> float:
         return self.gamma ** (epoch // self.step_size)
+
+    def observe(self, val_loss: float) -> None:
+        pass
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        pass
