@@ -77,6 +77,17 @@ Phases, one line each, any failure exits non-zero:
      through the flow run_test on three synthetic 260x346 sequences, two
      with stored GT flow and one scored against RAFT-large pseudo-GT
      ([flow-eval]: finite EPE/1PE/3PE, a state reset a sequence)
+ 14b. ERAFT: a float32 ERAFT step (12 refinements, the extra event
+     group) with the random RAFT-large teacher, card against CPU
+     ([eraft-reference]); configs/train_v2v_eraft_10k.yaml (B=10, T=40
+     with the extra frame and event group, bf16) through main as in 7b
+     ([eraft-train]: K1 9 launches, lr 1e-4 each epoch, finite losses,
+     cnet's running statistics moved, checkpoint bytes within their
+     tensors' bound, as every driver phase's); test_eraft_original.yaml's
+     15-bin ERAFT through the flow run_test on two synthetic 720x1280
+     sequences of 10 frames against RAFT-large pseudo-GT and two 260x346
+     ones with stored flow ([eraft-eval]: T-1 flows, finite metrics, a
+     reset a sequence)
  15. the K5 experiment: v2v_tpu_torch/scripts/exp_sim_interleave.py at
      its full workload (12 clips of 201 uint8 frames at 128x128, spp 1,
      2 and 4, 50 chained launches a run); K5's launch count must equal
@@ -287,6 +298,36 @@ EVFLOW_TEST_CONFIG = {
          "image_range": 1}]},
 }
 EVFLOW_PARAMS = 14_125_346
+# configs/train_v2v_eraft_10k.yaml's `module` and `train_stages[0]`, and
+# configs/test_eraft_original.yaml: the EVFlowNet configs with ERAFT, the
+# extra leading event group and, for the eval, 15 bins;
+# tests/test_torch_eraft_train.py holds them equal to the YAMLs
+ERAFT_MODEL = {"target": "model.eraft.eraft.ERAFT",
+               "params": {"config": {"subtype": "warm_start"},
+                          "n_first_channels": 5}}
+ERAFT_TRAIN_MODULE = dict(EVFLOW_TRAIN_MODULE, model=ERAFT_MODEL,
+                          forward_type="eraft")
+ERAFT_TRAIN_STAGE = dict(
+    EVFLOW_TRAIN_STAGE,
+    dataset=dict(
+        EVFLOW_TRAIN_STAGE["dataset"],
+        train=[dict(EVFLOW_TRAIN_STAGE["dataset"]["train"][0],
+                    video_list_file="configs/webvid10000_unfiltered.txt",
+                    output_additional_evs=True)],
+        val=[dict(v, output_additional_evs=True)
+             for v in EVFLOW_TRAIN_STAGE["dataset"]["val"]]))
+ERAFT_TEST_CONFIG = dict(
+    EVFLOW_TEST_CONFIG, experiment_name="eraft_original",
+    test_output_dir="results/eraft_original", save_npy=False, save_png=True,
+    module={"loss": EVFLOW_LOSS, "normalize_voxels": False,
+            "model": dict(ERAFT_MODEL, params=dict(ERAFT_MODEL["params"],
+                                                   n_first_channels=15)),
+            "forward_type": "eraft"},
+    test_stage=dict(EVFLOW_TEST_CONFIG["test_stage"], test=[
+        dict(t, num_bins=15, output_additional_evs=True)
+        for t in EVFLOW_TEST_CONFIG["test_stage"]["test"]]))
+ERAFT_PARAMS = 5_270_080
+ERAFT_EVAL_PARAMS = 5_332_800      # 15 input bins in fnet's and cnet's conv1
 # [flow-eval]: MVSEC's DAVIS346 frame (EVAL_FRAMES frames a sequence,
 # the config's sequence_length of 80 cut as the other evals' are);
 # events a frame, of MVSEC's order (~1e4-1e5 between flow timestamps);
@@ -1330,7 +1371,9 @@ class _DriftingClips:
     """A seeded stand-in for the WebVid train set, in WebvidDataset's
     output="video" item contract: {"video": uint8 (N, H, W),
     "data_source_idx": int64}, N = sequence_length * num_bins *
-    frames_per_bin + 1 and H = W = crop_size of the data config. Each clip
+    frames_per_bin + 1, plus num_bins * frames_per_bin leading frames
+    where the config sets output_additional_evs, and H = W = crop_size of
+    the data config. Each clip
     is a random texture drifting by a random sub-pixel velocity a frame,
     with slow brightness changes, made in numpy on the host from `seed`
     and the index: the host twin of _drifting_video. It stands in for mp4
@@ -1346,8 +1389,9 @@ class _DriftingClips:
         import numpy as np
         from v2v_tpu_torch.data.sources import DATA_SOURCES
         c = self.data_cfg
-        n = c["sequence_length"] * c["num_bins"] * c.get("frames_per_bin",
-                                                         1) + 1
+        fpi = c["num_bins"] * c.get("frames_per_bin", 1)
+        n = (c["sequence_length"] + bool(c.get("output_additional_evs"))) \
+            * fpi + 1
         h = w = c["crop_size"]
         rng = np.random.default_rng((self.seed, idx))
         tex = np.pad(rng.random((2 * h, 2 * w)), 1, mode="edge")
@@ -1386,6 +1430,21 @@ class _Tee:
             st.flush()
 
 
+def _checkpoint_bound(torch, model, optimizer):
+    """The bytes a checkpoint of `model` and `optimizer` should take: at
+    least every distinct storage of the model's state_dict and the
+    optimizer's state (a BatchNorm registered twice is stored once), at
+    most that plus 1 KiB a tensor (zip record and pickled name) and 64
+    KiB."""
+    tensors = list(model.state_dict().values()) + [
+        v for st in optimizer.state.values() for v in st.values()
+        if torch.is_tensor(v)]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}
+    low = sum(storages.values())
+    return low, low + 1024 * len(tensors) + 65536
+
+
 def phase_driver(torch, dev, seed, slice_ms=None, module=None, stage=None,
                  tag="driver", task="e2vid"):
     """A train config (default the flagship: full width, random LPIPS-VGG
@@ -1398,10 +1457,12 @@ def phase_driver(torch, dev, seed, slice_ms=None, module=None, stage=None,
     with the optimizer state. K1 must launch once a driver step; the
     ckpt_paths file, val_loss.txt, the losses, each epoch's lr (the
     config's base lr times its scheduler's multiplier), the optimizer's
-    step count after the resume, load_params_only of the last checkpoint
-    and the resume are checked. Prints the driver's ms/step (beside the
-    [slice] phase's `slice_ms` when given), the host's wait on the loader
-    a step, checkpoint time and bytes, and the peak memory."""
+    step count after the resume, load_params_only of the last checkpoint,
+    the resume, the checkpoint bytes against their tensors' bytes
+    (_checkpoint_bound) and, for a model with BatchNorms, running
+    statistics that moved are checked. Prints the driver's ms/step
+    (beside the [slice] phase's `slice_ms` when given), the host's wait on
+    the loader a step, checkpoint time and bytes, and the peak memory."""
     import contextlib
     import copy
     import io
@@ -1508,6 +1569,15 @@ def phase_driver(torch, dev, seed, slice_ms=None, module=None, stage=None,
                  f"{tag}: load_params_only of the last checkpoint differs "
                  f"from the driver's final parameters")
         optimizer = type(last["optimizer"]).__name__
+        low, high = _checkpoint_bound(torch, last["model"], last["optimizer"])
+        ckpt_bytes = runs[-1]["timings"]["checkpoint_bytes"]
+        _require(all(low <= x <= high for x in ckpt_bytes),
+                 f"{tag}: checkpoints of {ckpt_bytes} bytes, want "
+                 f"{low}-{high}")
+        bn_var = {k: float((v - 1).abs().max()) for k, v in final.items()
+                  if k.endswith("running_var")}
+        _require(all(v > 0 and math.isfinite(v) for v in bn_var.values()),
+                 f"{tag}: BatchNorm running variances did not move")
     finally:
         for k, v in saved_env.items():
             if v is None:
@@ -1542,9 +1612,14 @@ def phase_driver(torch, dev, seed, slice_ms=None, module=None, stage=None,
     _log(f"[{tag}] host wait on the loader and the prefetch a step (ms): "
          f"median {statistics.median(wait_ms):.2f}, max {max(wait_ms):.2f} "
          f"(all: {', '.join(f'{x:.2f}' for x in wait_ms)})")
+    if bn_var:
+        _log(f"[{tag}] {len(bn_var)} BatchNorm running variances moved "
+             f"from 1 by {min(bn_var.values()):.4f}-"
+             f"{max(bn_var.values()):.4f}")
     _log(f"[{tag}] checkpoints: {len(ckpt_s)} saved, "
          f"{', '.join(f'{s:.3f}' for s in ckpt_s)} s, "
-         f"{', '.join(str(b) for b in ckpt_b)} bytes; max_memory_allocated "
+         f"{', '.join(str(b) for b in ckpt_b)} bytes (predicted "
+         f"{low}-{high}); max_memory_allocated "
          f"{peak:.2f} GiB; resumed from epoch_{DRIVER_EPOCHS - 1:04d}.pth "
          f"at epoch {DRIVER_EPOCHS} with {optimizer} at step {steps}; "
          f"launches {launches}")
@@ -1782,7 +1857,8 @@ class _SyntheticSequence:
     a fixed rate, both from numpy with `seed`, voxelized on the host by
     the port's events_to_voxel_np with the data config's settings. Where
     the config sets output_additional_frame, T+1 frames lead by the one
-    before the first events. With `flow`, the layout of
+    before the first events; where it sets output_additional_evs, T+1
+    event groups lead by the one before. With `flow`, the layout of
     TestH5FlowDataset: a stored GT flow (T,H,W,2) of SYNTHETIC_FLOW at
     every pixel. It stands in for an h5 file: the card's machine has no
     h5py."""
@@ -1807,11 +1883,12 @@ class _SyntheticSequence:
         coarse = rng.random((h // cell + 2, w // cell + 2)) * 255.0
         texture = np.kron(coarse, np.ones((cell, cell)))
         extra = 1 if self.data_cfg.get("output_additional_frame") else 0
+        extra_evs = 1 if self.data_cfg.get("output_additional_evs") else 0
         frames, voxels = [], []
         for t in range(self.frames + extra):
             dy, dx = t % cell, (2 * t) % cell
             frames.append(texture[dy:dy + h, dx:dx + w])
-        for t in range(self.frames):
+        for t in range(-extra_evs, self.frames):
             n = self.events_per_frame
             ts = np.sort(rng.uniform(t / 30.0, (t + 1) / 30.0, n))
             voxels.append(events_to_voxel_np(
@@ -2050,100 +2127,222 @@ def phase_flow_reference(torch, dev, seed):
     _tf32(torch, True)
 
 
-def phase_flow_profile(torch, dev, seed):
-    """One train step of configs/train_v2v_evflow_10k.yaml at full width
-    (B=10, T=40, 128x128 with the extra frame, bf16, random RAFT-large
-    teacher at 12 updates) under torch.profiler: the GPU span of
-    v2v.teacher, v2v.forward, v2v.loss and v2v.optimizer, and the
-    kernels that take the most device time."""
+def phase_eraft_reference(torch, dev, seed):
+    """One float32 ERAFT flow train step (the train config's model at
+    full width and 12 refinements, with the config's RAFT-large teacher at
+    12 updates, random; 2 clips of 3 time steps at 64x64 with the extra
+    frame and the extra leading event group) on the card against the same
+    step on the CPU, same weights, teacher and voxels, TF32 off: first the
+    eval-mode flows and carry, then the teacher's pseudo-GT, the 3 pairs
+    with cnet's live BatchNorm, the flow L1, the backward and Adam. The
+    CPU path is the one the tier-1 tests hold against JAX."""
+    import copy
+    from v2v_tpu_torch.ops.voxel import SimConfig
+    from v2v_tpu_torch.training.flow_interface import FlowModelInterface
+    from v2v_tpu_torch.training.optim import Adam
+    from v2v_tpu_torch.training.raft import random_teacher
+    from v2v_tpu_torch.training.steps import make_train_step, synthesize_batch
+    tag = "eraft-reference"
+    _tf32(torch, False)
+    cpu = torch.device("cpu")
+    lr, t = 1e-4, 3
+    mod = json.loads(json.dumps(ERAFT_TRAIN_MODULE))
+    mod.pop("compute_dtype")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    video = _drifting_video(2, (t + 1) * 5 + 1, 64, 64, seed + 9, dev)
+    events, frame = synthesize_batch(video, g, SimConfig(), 5, 1,
+                                     extra_frame=True, extra_evs=True)
+    _require(events.shape[1] == frame.shape[1] == t + 1,
+             f"{tag}: {events.shape[1]} event groups, {frame.shape[1]} "
+             f"frames")
+    teacher = random_teacher(12, cpu, torch.Generator().manual_seed(seed),
+                             source="raft_large")
+    runs = []
+    for d in (dev, cpu):
+        iface = FlowModelInterface(mod, d,
+                                   teacher=copy.deepcopy(teacher).to(d))
+        iface.teacher_dtype = None
+        if d == dev:
+            state = {k: v.to(cpu) for k, v in iface.model.state_dict().items()}
+            n_params = sum(p.numel() for p in iface.model.parameters())
+        else:
+            iface.model.load_state_dict(state)
+        with torch.no_grad():
+            flows, carry = iface.forward_sequence(
+                events.to(d), iface.init_state(2, 64, 64))
+        opt = Adam(lr=lr, amsgrad=True).make(iface.model.parameters())
+        step = make_train_step(iface, opt)
+        batch = {"events": events.to(d), "frame": frame.to(d)}
+        target = iface.prepare_flow(batch)["flow"].to(cpu)
+        loss, aux = step(batch)
+        runs.append((float(loss), float(aux["grad_norm"]),
+                     {k: v.detach().to(cpu)
+                      for k, v in iface.model.state_dict().items()}, target,
+                     flows.to(cpu), carry.to(cpu)))
+    (lc, gc, pc, tc, fc, cc), (lh, gh, ph, th, fh, ch) = runs
+    _require(fc.shape == (2, t, 64, 64, 2) and cc.shape == (2, 8, 8, 2),
+             f"{tag}: flows {tuple(fc.shape)}, carry {tuple(cc.shape)}")
+    perr = max(float((pc[k] - ph[k]).abs().max()) for k in pc
+               if "running" not in k and "num_batches" not in k)
+    serr = max(float((pc[k] - ph[k]).abs().max()) for k in pc
+               if "running" in k)
+    terr = float((tc - th).abs().max())
+    ferr = float((fc - fh).abs().max())
+    cerr = float((cc - ch).abs().max())
+    fmax = float(fh.abs().max())
+    _require(n_params == ERAFT_PARAMS,
+             f"{tag}: the model has {n_params} parameters")
+    _log(f"[{tag}] ERAFT {n_params} params + random RAFT-large (12 "
+         f"updates), B=2 T={t}+1 64x64, "
+         f"float32: flow max|cuda - cpu| {ferr:.2e} px (|flow| up to "
+         f"{fmax:.3f}), carry {cerr:.2e} px; teacher flow {terr:.2e} px; "
+         f"loss cuda {lc:.6f} cpu {lh:.6f}  grad_norm cuda {gc:.6f} cpu "
+         f"{gh:.6f}  max|param diff| after step {perr:.2e}  max|running "
+         f"statistics diff| {serr:.2e}")
+    _require(math.isfinite(lc) and fmax > 0, f"{tag}: loss or flow")
+    # 12 refinements of float32 convs in other orders, as the CPU port
+    # against JAX (tests/test_torch_eraft.py: 1e-3 at 12 refinements)
+    _require(ferr <= 1e-3 * (1 + fmax) and cerr <= 1e-3 * (1 + fmax),
+             f"{tag}: the flows differ between card and CPU")
+    _require(terr <= 1e-3 * (1 + float(th.abs().max())),
+             f"{tag}: the teacher's flow differs between card and CPU")
+    _require(abs(lc - lh) <= 1e-4 * abs(lh), f"{tag}: loss differs")
+    _require(abs(gc - gh) <= 1e-3 * abs(gh), f"{tag}: grad norm differs")
+    _require(perr <= 2 * lr * (1 + 1e-3), f"{tag}: params after the step "
+                                          f"differ")
+    _require(serr <= 1e-4, f"{tag}: BatchNorm running statistics differ")
+    _tf32(torch, True)
+
+
+def phase_flow_profile(torch, dev, seed, module=None, stage=None,
+                       tag="flow-train-profile"):
+    """One train step of a flow train config at full width (default
+    configs/train_v2v_evflow_10k.yaml: B=10, T=40, 128x128 with the extra
+    frame, bf16, random RAFT-large teacher at 12 updates) under
+    torch.profiler: the GPU span of v2v.teacher, v2v.forward, v2v.loss and
+    v2v.optimizer, and the kernels that take the most device time."""
     from v2v_tpu_torch.training.flow_interface import FlowModelInterface
     from v2v_tpu_torch.training.raft import random_teacher
     from v2v_tpu_torch.training.steps import make_train_step
     from v2v_tpu_torch.training.train import (make_optimizer,
                                               sim_config_from_dataset)
-    data_cfg = EVFLOW_TRAIN_STAGE["dataset"]["train"][0]
-    b = EVFLOW_TRAIN_STAGE["dataset"]["train_batch_size"]
+    module, stage = module or EVFLOW_TRAIN_MODULE, stage or EVFLOW_TRAIN_STAGE
+    data_cfg = stage["dataset"]["train"][0]
+    b = stage["dataset"]["train_batch_size"]
     t, hw = data_cfg["sequence_length"], data_cfg["crop_size"]
+    extra_evs = data_cfg.get("output_additional_evs", False)
+    fpi = data_cfg["num_bins"] * data_cfg["frames_per_bin"]
     g = torch.Generator(device=dev).manual_seed(seed)
-    iface = FlowModelInterface(EVFLOW_TRAIN_MODULE, dev, generator=g,
+    iface = FlowModelInterface(module, dev, generator=g,
                                teacher=random_teacher(12, dev, g,
                                                       source="raft_large"))
     step = make_train_step(
-        iface, make_optimizer(EVFLOW_TRAIN_STAGE["optimizer"]).make(
+        iface, make_optimizer(stage["optimizer"]).make(
             iface.model.parameters()),
         sim_config_from_dataset(data_cfg), data_cfg["num_bins"],
-        data_cfg["frames_per_bin"], extra_frame=True)
-    batch = {"video": _drifting_video(b, t * data_cfg["num_bins"] + 1, hw,
-                                      hw, seed + 8, dev),
+        data_cfg["frames_per_bin"], extra_frame=True, extra_evs=extra_evs)
+    batch = {"video": _drifting_video(b, (t + extra_evs) * fpi + 1, hw, hw,
+                                      seed + 8, dev),
              "data_source_idx": torch.full((b,), 11, dtype=torch.int64)}
     step(batch, g)                      # warm up
-    _profile(torch, "flow-train-profile", lambda: step(batch, g))
+    _profile(torch, tag, lambda: step(batch, g))
 
 
-def phase_flow_eval(torch, dev, seed, profile=False):
-    """configs/test_evflow_original.yaml's EVFlowNet (random weights)
-    through the port's flow run_test on three synthetic MVSEC-sized
-    (260x346) sequences of EVAL_FRAMES frames: two named as MVSEC's
-    flow sequences with a stored GT flow (TestH5FlowDataset's layout),
-    one without flow (TestH5Dataset's, with the extra frame) scored
-    against the pseudo-GT of a random RAFT-large teacher at 12 updates.
-    Dense and sparse EPE/1PE/3PE must be finite for each sequence, the
-    state must be reset at each of the three, the flows finite and of
-    the frame's shape. Prints ms/frame of the model and of the teacher,
-    and the peak memory."""
+def _evflow_eval_sequences(seed):
+    """[flow-eval]'s sequences: three MVSEC-sized ones of EVAL_FRAMES
+    frames, two named as MVSEC's flow sequences with a stored GT flow
+    (TestH5FlowDataset's layout), one without flow (TestH5Dataset's, with
+    the extra frame), scored against the teacher's pseudo-GT."""
+    flow_cfg = EVFLOW_TEST_CONFIG["test_stage"]["test"][3]   # mvsec
+    names = ("indoor_flying1", "indoor_flying2", "outdoor_day1")
+    return [_SyntheticSequence(name, seed + 40 + i, EVAL_FRAMES,
+                               FLOW_EVAL_HW, FLOW_EVAL_EVENTS_PER_FRAME,
+                               flow_cfg, flow=i < 2)
+            for i, name in enumerate(names)]
+
+
+def _eraft_eval_sequences(seed):
+    """[eraft-eval]'s sequences at test_eraft_original.yaml's 15 bins with
+    the extra frame and event group: two EVAID-sized (720x1280) ones of the
+    config's sequence_length (10) without flow, scored against the
+    teacher's pseudo-GT, and two MVSEC-sized ones of EVAL_FRAMES with a
+    stored GT flow."""
+    evaid, _, _, mvsec = ERAFT_TEST_CONFIG["test_stage"]["test"]
+    return ([_SyntheticSequence(name, seed + 50 + i,
+                                evaid["sequence_length"], EVAL_HW,
+                                EVAL_EVENTS_PER_FRAME, evaid)
+             for i, name in enumerate(("ball", "bear"))]
+            + [_SyntheticSequence(name, seed + 52 + i, EVAL_FRAMES,
+                                  FLOW_EVAL_HW, FLOW_EVAL_EVENTS_PER_FRAME,
+                                  mvsec, flow=True)
+               for i, name in enumerate(("indoor_flying1",
+                                         "indoor_flying2"))])
+
+
+def phase_flow_eval(torch, dev, seed, profile=False, config=None,
+                    seqs=None, n_params_want=EVFLOW_PARAMS, tag="flow-eval"):
+    """A flow test config (default configs/test_evflow_original.yaml's
+    EVFlowNet), random weights, through the port's flow run_test on
+    synthetic sequences (default _evflow_eval_sequences), the sequences
+    without flow scored against the pseudo-GT of a random RAFT-large
+    teacher at 12 updates. Dense and sparse EPE/1PE/3PE must be finite
+    for each sequence, the state must be reset once a sequence, the flows
+    finite, of the frame's size and one fewer than the event groups for
+    ERAFT (its voxel pairs), as many for EVFlowNet. Prints ms/frame of the
+    model (a sequence's forward_sequence call over its flows: EVFlowNet
+    batched over its frames, ERAFT pair by pair) and of the teacher, and
+    the peak memory."""
     from v2v_tpu_torch.data.interface import ConcatDataset
     from v2v_tpu_torch.eval import flow_harness
     from v2v_tpu_torch.training.flow_interface import FLOW_METRICS
     from v2v_tpu_torch.training.flow_interface import FlowModelInterface
     from v2v_tpu_torch.training.raft import random_teacher
     from v2v_tpu_torch.training.steps import make_eval_step
-    tag = "flow-eval"
-    cfg = json.loads(json.dumps(EVFLOW_TEST_CONFIG))
+    cfg = json.loads(json.dumps(config or EVFLOW_TEST_CONFIG))
     cfg.pop("test_output_dir")     # PNG output needs cv2, absent here
-    flow_cfg = cfg["test_stage"]["test"][3]          # mvsec, stored flow
+    seqs = seqs or _evflow_eval_sequences(seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     iface = FlowModelInterface(cfg["module"], dev, generator=g,
                                teacher=random_teacher(12, dev, g,
                                                       source="raft_large"))
+    pairs = iface.forward_type == "eraft"
     n_params = sum(p.numel() for p in iface.model.parameters())
-    _require(n_params == EVFLOW_PARAMS,
+    _require(n_params == n_params_want,
              f"{tag}: the model has {n_params} parameters")
-    names = ("indoor_flying1", "indoor_flying2", "outdoor_day1")
-    seqs = [_SyntheticSequence(name, seed + 40 + i, EVAL_FRAMES,
-                               FLOW_EVAL_HW, FLOW_EVAL_EVENTS_PER_FRAME,
-                               flow_cfg, flow=i < 2)
-            for i, name in enumerate(names)]
-    model = iface.model
     times, outs, resets, teacher_ms = [], [], [], []
 
-    def timed_forward(*args, **kw):
+    def timed_forward(events, state, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, states = type(model).forward(model, *args, **kw)
+        flows, state = type(iface).forward_sequence(iface, events, state,
+                                                    **kw)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3 / args[0].shape[0])
-        outs.append(out["flow"].detach().clone())
-        return out, states
+        times.append((time.perf_counter() - t0) * 1e3 / flows.shape[1])
+        outs.append((tuple(events.shape), flows.detach().clone()))
+        return flows, state
 
     def counted_init(*args, **kw):
         resets.append(args)
         return type(iface).init_state(iface, *args, **kw)
 
-    def timed_prepare(*args, **kw):
+    def timed_prepare(batch, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = type(iface).prepare_flow(iface, *args, **kw)
+        out = type(iface).prepare_flow(iface, batch, **kw)
         torch.cuda.synchronize()
-        teacher_ms.append((time.perf_counter() - t0) * 1e3 / EVAL_FRAMES)
+        teacher_ms.append((time.perf_counter() - t0) * 1e3
+                          / out["flow"].shape[1])
         return out
 
-    model.forward, iface.init_state = timed_forward, counted_init
+    iface.forward_sequence, iface.init_state = timed_forward, counted_init
     iface.prepare_flow = timed_prepare
-    _log(f"[{tag}] EVFlowNet {n_params} params at {FLOW_EVAL_HW[0]}x"
-         f"{FLOW_EVAL_HW[1]}, 3 sequences x {EVAL_FRAMES} frames "
-         f"({FLOW_EVAL_EVENTS_PER_FRAME} events a frame), 2 with stored "
-         f"GT flow, 1 scored against random RAFT-large pseudo-GT")
-    root = tempfile.mkdtemp(prefix="chip_smoke_flow_eval_")
+    _log(f"[{tag}] {type(iface.model).__name__} {n_params} params, "
+         + "; ".join(f"{q.name} {q.hw[0]}x{q.hw[1]} {q.frames} frames "
+                     f"{q.data_cfg['num_bins']} bins {q.events_per_frame} "
+                     f"events a frame"
+                     + (", stored flow" if q.flow else ", pseudo-GT")
+                     for q in seqs))
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2151,19 +2350,22 @@ def phase_flow_eval(torch, dev, seed, profile=False):
         final = flow_harness.run_test(iface, cfg, root=root,
                                       dataset=ConcatDataset(seqs))
     finally:
-        del model.forward, iface.init_state, iface.prepare_flow
+        del iface.forward_sequence, iface.init_state, iface.prepare_flow
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _require(len(resets) == len(seqs), f"{tag}: the state was reset "
                                        f"{len(resets)} times")
-    _require(len(teacher_ms) == 1, f"{tag}: the teacher ran "
-                                   f"{len(teacher_ms)} times")
-    padded = tuple(-(-n // 16) * 16 for n in FLOW_EVAL_HW)
-    for f in outs:
-        _require(f.shape[1:] == (2, *padded)
-                 and bool(torch.isfinite(f).all()), f"{tag}: flow "
-                                                    f"{tuple(f.shape)}")
-    want = {f"MVSEC/{n}/{m}" for n in names for m in FLOW_METRICS}
+    n_teacher = sum(not q.flow for q in seqs)
+    _require(len(teacher_ms) == n_teacher, f"{tag}: the teacher ran "
+                                           f"{len(teacher_ms)} times")
+    _require(len(outs) == len(seqs), f"{tag}: {len(outs)} model calls")
+    for (b, t_in, h, w, _), f in outs:
+        _require(f.shape == (b, t_in - pairs, h, w, 2)
+                 and bool(torch.isfinite(f).all()),
+                 f"{tag}: flow {tuple(f.shape)} from events "
+                 f"{(b, t_in, h, w)}")
+    src = {q.name: q.data_cfg["dataset_name"].upper() for q in seqs}
+    want = {f"{src[q.name]}/{q.name}/{m}" for q in seqs for m in FLOW_METRICS}
     _require(set(final) == want and all(math.isfinite(v)
                                         for v in final.values()),
              f"{tag}: metrics {final}")
@@ -2171,19 +2373,20 @@ def phase_flow_eval(torch, dev, seed, profile=False):
                            "test_metrics.txt")) as f:
         _require(len([ln for ln in f if ln.strip()]) == len(want),
                  f"{tag}: test_metrics.txt")
-    for n in names:
-        _log(f"[{tag}] {n}: " + ", ".join(
-            f"{m} {final[f'MVSEC/{n}/{m}']:.4f}" for m in FLOW_METRICS))
-    _log(f"[{tag}] model ms/frame (a call over the {EVAL_FRAMES} frames of "
-         f"a sequence, batched: EVFlowNet has no state): "
-         + ", ".join(f"{x:.2f}" for x in times) + f"; RAFT-large pseudo-GT "
-         f"{teacher_ms[0]:.2f} ms/frame; run_test {wall:.1f} s for "
-         f"{len(seqs) * EVAL_FRAMES} frames; max_memory_allocated "
-         f"{peak:.2f} GiB")
+    for q in seqs:
+        _log(f"[{tag}] {q.name}: " + ", ".join(
+            f"{m} {final[f'{src[q.name]}/{q.name}/{m}']:.4f}"
+            for m in FLOW_METRICS))
+    _log(f"[{tag}] model ms/frame (a sequence's call over its flows): "
+         + ", ".join(f"{q.name} {x:.2f}" for q, x in zip(seqs, times))
+         + "; RAFT-large pseudo-GT ms/frame: "
+         + ", ".join(f"{x:.2f}" for x in teacher_ms) + f"; run_test "
+         f"{wall:.1f} s; max_memory_allocated {peak:.2f} GiB")
     if profile:
         ev = torch.as_tensor(seqs[0][0]["events"][None], device=dev)
         eval_step = make_eval_step(iface)
-        _profile(torch, f"{tag}-profile", lambda: eval_step(ev, ()))
+        state = iface.init_state(1, *ev.shape[2:4])
+        _profile(torch, f"{tag}-profile", lambda: eval_step(ev, state))
     return final
 
 
@@ -2255,6 +2458,16 @@ def main(argv=None) -> int:
         if args.profile:
             phase_flow_profile(torch, dev, args.seed)
         phase_flow_eval(torch, dev, args.seed, args.profile)
+        phase_eraft_reference(torch, dev, args.seed)
+        paths["eraft-train"], _ = phase_driver(
+            torch, dev, args.seed, module=ERAFT_TRAIN_MODULE,
+            stage=ERAFT_TRAIN_STAGE, tag="eraft-train", task="flow")
+        if args.profile:
+            phase_flow_profile(torch, dev, args.seed, ERAFT_TRAIN_MODULE,
+                               ERAFT_TRAIN_STAGE, "eraft-train-profile")
+        phase_flow_eval(torch, dev, args.seed, args.profile,
+                        ERAFT_TEST_CONFIG, _eraft_eval_sequences(args.seed),
+                        ERAFT_EVAL_PARAMS, "eraft-eval")
         paths["sim-interleave"] = phase_sim_interleave(torch, dev)
     except Exception as e:   # every phase failure ends the run non-zero
         import traceback

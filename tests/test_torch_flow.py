@@ -214,7 +214,7 @@ def test_prepare_flow_sources(monkeypatch):
     """Stored flow at test time or for source 'gt'; zeros; RAFT-large
     pseudo-GT over the T+1 frames, replacing a stored flow, equal to
     JAX's on a bridged teacher (float32, 2 updates: atol 1e-3); 'gt'
-    without flow raises; forward_type eraft waits for ERAFT."""
+    without flow raises; an unknown forward_type raises."""
     frames = np.random.RandomState(6).rand(1, 4, 32, 40, 1).astype(
         np.float32)
     stored = np.full((1, 3, 32, 40, 2), 7.0, np.float32)
@@ -246,8 +246,8 @@ def test_prepare_flow_sources(monkeypatch):
     assert float(got.abs().max()) > 1e-3
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3,
                                rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="P10"):
-        FlowModelInterface(dict(_module(), forward_type="eraft"),
+    with pytest.raises(ValueError, match="forward_type"):
+        FlowModelInterface(dict(_module(), forward_type="raft"),
                            device="cpu")
 
 

@@ -14,9 +14,9 @@ from v2v_tpu.models.eraft import convex_upsample as j_convex_upsample
 from v2v_tpu.training import raft as jraft
 
 from v2v_tpu_torch.models.convert import jax_params_to_state_dict
+from v2v_tpu_torch.models.eraft import convex_upsample
 from v2v_tpu_torch.training import raft as traft
-from v2v_tpu_torch.training.raft import (convex_upsample, load_teacher,
-                                         raft_flow, random_teacher)
+from v2v_tpu_torch.training.raft import load_teacher, raft_flow, random_teacher
 
 T = torch.from_numpy
 

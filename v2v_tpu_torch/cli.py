@@ -1,14 +1,14 @@
 """Command-line entry points of the port.
 
     python -m v2v_tpu_torch.cli train <config.yaml> [--device DEV]
-    python -m v2v_tpu_torch.cli test_e2vid <config.yaml> [all]
-    python -m v2v_tpu_torch.cli test_flow <config.yaml> [all]
+    python -m v2v_tpu_torch.cli test_e2vid <config.yaml> [all] [--device DEV]
+    python -m v2v_tpu_torch.cli test_flow <config.yaml> [all] [--device DEV]
 
 The argv contract is the reference's train.py, test_e2vid.py and
 test_flow.py (README.md:9-13): the config YAML, and for the tests an
 optional second argument that means "test every checkpoint in
 ckpt_paths/<experiment>.txt" instead of the last one. All run on the
-card; `train --device cpu` asks for the CPU (the repo-root train.py,
+card; `--device cpu` asks for the CPU (the repo-root train.py,
 test_e2vid.py and test_flow.py stay the JAX drivers). `train` also runs a process a card under
 
     torchrun --nproc_per_node N -m v2v_tpu_torch.cli train <config.yaml>
@@ -22,8 +22,10 @@ import sys
 
 USAGE = ("usage: python -m v2v_tpu_torch.cli train <config.yaml> "
          "[--device DEV]\n"
-         "       python -m v2v_tpu_torch.cli test_e2vid <config.yaml> [all]\n"
-         "       python -m v2v_tpu_torch.cli test_flow <config.yaml> [all]")
+         "       python -m v2v_tpu_torch.cli test_e2vid <config.yaml> [all] "
+         "[--device DEV]\n"
+         "       python -m v2v_tpu_torch.cli test_flow <config.yaml> [all] "
+         "[--device DEV]")
 
 
 def train(argv) -> None:
@@ -38,20 +40,31 @@ def train(argv) -> None:
     main(load_yaml(args.config), device=args.device)
 
 
-def test_e2vid(argv) -> None:
-    """argv = [command, config.yaml, optional "all"]."""
+def _test(argv, main) -> None:
+    """argv = [command, config.yaml, optional "all", optional --device
+    DEV]: `main` of a harness on the config, over every checkpoint when
+    the second argument is given."""
     from .config import load_yaml
+    ap = argparse.ArgumentParser(prog=f"python -m v2v_tpu_torch.cli "
+                                      f"{argv[0]}")
+    ap.add_argument("config", nargs="?", default="configs/template.yaml")
+    ap.add_argument("all", nargs="?", default=None,
+                    help="any value: test every checkpoint in ckpt_paths")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv[1:])
+    main(load_yaml(args.config), test_all_pths=args.all is not None,
+         device=args.device)
+
+
+def test_e2vid(argv) -> None:
     from .eval.harness import main
-    config_path = argv[1] if len(argv) > 1 else "configs/template.yaml"
-    main(load_yaml(config_path), test_all_pths=len(argv) > 2)
+    _test(argv, main)
 
 
 def test_flow(argv) -> None:
-    """argv = [command, config.yaml, optional "all"]."""
-    from .config import load_yaml
     from .eval.flow_harness import main
-    config_path = argv[1] if len(argv) > 1 else "configs/template.yaml"
-    main(load_yaml(config_path), test_all_pths=len(argv) > 2)
+    _test(argv, main)
 
 
 COMMANDS = {"train": train, "test_e2vid": test_e2vid, "test_flow": test_flow}

@@ -1,5 +1,6 @@
-"""The h5 test datasets (port of v2v_tpu/data/h5.py::TestH5Dataset and
-TestH5FlowDataset; reference data/testh5.py:14-303).
+"""The h5 test datasets (port of v2v_tpu/data/h5.py::TestH5Dataset,
+TestH5FlowDataset, TestH5CacheDataset and FPSH5Dataset; reference
+data/testh5.py:14-303, :383-519).
 
 HQF-format h5 files: `images/imageNNNNNNNNN` datasets whose
 attrs["event_idx"] point into `events/{ts,xs,ys,ps}`, cut into
@@ -20,6 +21,13 @@ import numpy as np
 
 from ..ops.voxel import events_to_voxel_np
 from .sources import DATA_SOURCES
+
+
+def _plain_windows(total: int, length: int) -> List[Tuple[int, int]]:
+    """(begin, end): windows of `length` steps over `total` - 1, without
+    warm-up."""
+    return [(i, min(total - 1, i + length))
+            for i in range(0, total - 1, length)]
 
 
 class TestH5Dataset:
@@ -132,9 +140,7 @@ class TestH5FlowDataset(TestH5Dataset):
     def _windows(self) -> List[Tuple[int, int]]:
         """(begin, end) flow indices: windows of sequence_length flows,
         without warm-up."""
-        return [(i, min(self.total_frame_cnt - 1, i + self.sequence_length))
-                for i in range(0, self.total_frame_cnt - 1,
-                               self.sequence_length)]
+        return _plain_windows(self.total_frame_cnt, self.sequence_length)
 
     def _image(self, f, img_idx: int) -> np.ndarray:
         return np.asarray(f["images"][self.img_keys[img_idx]][()],
@@ -179,4 +185,95 @@ class TestH5FlowDataset(TestH5Dataset):
                 self.dataset_name.lower())),
             "sequence_name": self.sequence_name,
             "frame_idx": np.asarray(frame_idxs, np.int64),
+        }
+
+
+class TestH5CacheDataset:
+    """Voxels stacked ahead of time (scripts/testh5_to_voxel_cache.py;
+    reference data/testh5.py:383-446): `frames` (N,H,W[,1]) and `events`
+    (N,bins,H,W) or (N,H,W,bins), whose attrs must carry this config's
+    `num_bins` and `interpolate_bins`. Windows of sequence_length over all
+    N frames; no warm-up, extra frame or extra events."""
+
+    def __init__(self, h5_path: str, configs: Dict[str, Any]):
+        import h5py
+        self.h5_path = h5_path
+        self.sequence_name = os.path.basename(h5_path).split(".")[0]
+        self.dataset_name = configs.get("dataset_name", "hqf")
+        self.sequence_length = configs.get("sequence_length", 40)
+        self.num_bins = configs.get("num_bins", 5)
+        self.interpolate_bins = configs.get("interpolate_bins", False)
+        with h5py.File(h5_path, "r") as f:
+            for key in ("num_bins", "interpolate_bins"):
+                if getattr(self, key) != f.attrs[key]:
+                    raise ValueError(
+                        f"{h5_path} was cached with {key}={f.attrs[key]}, "
+                        f"the config asks for {getattr(self, key)}")
+            self.total_frame_cnt = f["frames"].shape[0]
+        self.samples = [(i, min(self.total_frame_cnt,
+                                i + self.sequence_length))
+                        for i in range(0, self.total_frame_cnt,
+                                       self.sequence_length)]
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        import h5py
+        begin, end = self.samples[idx]
+        with h5py.File(self.h5_path, "r") as f:
+            frames = np.asarray(f["frames"][begin:end], np.float32)
+            events = np.asarray(f["events"][begin:end], np.float32)
+        if frames.ndim == 3:
+            frames = frames[..., None]
+        if events.shape[1] == self.num_bins:       # stored channels-first
+            events = events.transpose(0, 2, 3, 1)
+        return {
+            "frame": frames,
+            "events": events,
+            "data_source_idx": np.int64(DATA_SOURCES.index(
+                self.dataset_name.lower())),
+            "sequence_name": self.sequence_name,
+            "frame_idx": np.arange(begin, end, dtype=np.int64),
+        }
+
+
+class FPSH5Dataset(TestH5Dataset):
+    """An events-only h5 (real DAVIS captures, EvBird; reference
+    data/testh5.py:448-519) cut into frames at a synthetic `FPS`: the
+    frame borders are evenly spaced from the first timestamp to the last,
+    `total_frame_cnt` = (t_last - t_first) * FPS of them, and a frame's
+    events are found by `searchsorted`. Windows of sequence_length over
+    the total_frame_cnt - 1 frames, no warm-up, events only (no `frame`,
+    so the harness scores nothing and writes the predictions). H and W
+    come from the config."""
+
+    def __init__(self, h5_path: str, configs: Dict[str, Any]):
+        self.fps = configs.get("FPS", 100)
+        self.H = configs.get("H", 260)
+        self.W = configs.get("W", 346)
+        # the JAX reader and the reference take every window
+        super().__init__(h5_path, {k: v for k, v in configs.items()
+                                   if k != "max_samples"})
+
+    def _read_index(self, f) -> None:
+        ts = f["events/ts"][:]
+        self.total_frame_cnt = int((ts[-1] - ts[0]) * self.fps)
+        borders = np.linspace(ts[0], ts[-1], self.total_frame_cnt + 1)
+        self.event_idx = np.searchsorted(ts, borders)
+
+    def _windows(self) -> List[Tuple[int, int]]:
+        return _plain_windows(self.total_frame_cnt, self.sequence_length)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        begin, end = self.samples[idx]
+        with self._open() as f:
+            voxels = [self._voxel(f, self.event_idx[i], self.event_idx[i + 1])
+                      for i in range(begin, end)]
+        return {
+            "events": np.stack(voxels).transpose(0, 2, 3, 1).astype(
+                np.float32),
+            "data_source_idx": np.int64(DATA_SOURCES.index(
+                self.dataset_name.lower())),
+            "sequence_name": self.sequence_name,
         }

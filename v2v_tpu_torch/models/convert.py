@@ -1,9 +1,9 @@
 """Flax parameter trees (as numpy) -> torch state_dicts.
 
 The inverse of v2v_tpu/models/convert.py::torch_state_dict_to_flax for
-the modules this package ports (E2VID, ETNet, the RAFT teacher, the
-LPIPS trunks): carries weights from the JAX reference into the port, so
-parity tests run both on the same numbers. Rules:
+the modules this package ports (E2VID, ETNet, HyperE2VID, ERAFT, the
+RAFT teachers, the LPIPS trunks): carries weights from the JAX reference
+into the port, so parity tests run both on the same numbers. Rules:
 
   * kernel (kH,kW,I,O) -> weight (O,I,kH,kW); kernel (I,O) -> weight (O,I)
   * packed attention in_proj_kernel (d,3d) -> in_proj_weight (3d,d)
@@ -15,6 +15,8 @@ parity tests run both on the same numbers. Rules:
   * the decoder stack's `decoders/decoders_0` -> `decoders.0`
   * ETNet's stacked streams `tri_encoder`/`tri_decoder` (leading axis 3)
     -> `trans_encoder{i}.encoder` / `trans_decoder{i}.decoder`
+  * a residual block's `norm3` also as `downsample.1`, ERAFT's second
+    registration of the same module (model/eraft/extractor.py)
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ import torch
 # `{name}_{i}` (the subset of the reference converter's list that the
 # ported modules use)
 _MODULELISTS = ("encoders", "resblocks", "layer1", "layer2", "layer3",
-                "downsample", "DownsampleConv", "UpsampleConv", "layers",
-                "bases_net")
+                "downsample", "mask", "DownsampleConv", "UpsampleConv",
+                "layers", "bases_net")
 _DECODER_STACKS = ("decoders",)
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 
@@ -117,4 +119,8 @@ def jax_params_to_state_dict(flax_params: Dict[str, Any]
         sd[".".join(mod + [f"running_{path[-1]}"])] = torch.from_numpy(
             np.array(val, dtype=np.float32))
         sd[".".join(mod + ["num_batches_tracked"])] = torch.tensor(0)
+    for key in [k for k in sd if ".norm3." in k]:
+        block, leaf = key.rsplit(".norm3.", 1)
+        if f"{block}.downsample.0.weight" in sd:
+            sd[f"{block}.downsample.1.{leaf}"] = sd[key]
     return sd

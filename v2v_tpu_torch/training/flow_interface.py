@@ -1,8 +1,9 @@
 """The flow task's interface (port of v2v_tpu/training/flow_interface.py;
-reference model/train_flow_utils.py:200-467) for EVFlowNet.
+reference model/train_flow_utils.py:200-467) for EVFlowNet and ERAFT.
 
 ModelInterface's skeleton, with a per-step voxel -> flow forward
-(`forward_type: evflow`), the flow L1 loss, and the dense/sparse
+(`forward_type: evflow`) or ERAFT's voxel pairs with its warm-start
+carry (`forward_type: eraft`), the flow L1 loss, and the dense/sparse
 EPE/1PE/3PE test metrics with validity and event masks. Flows are
 channels-last (B,T,H,W,2), as at the base interface.
 """
@@ -20,16 +21,13 @@ from .interface import ModelInterface
 
 
 class FlowModelInterface(ModelInterface):
-    """ModelInterface for flow models. `forward_type: eraft` (ERAFT's
-    voxel pairs and warm start) waits for ERAFT (ROADMAP P10)."""
+    """ModelInterface for flow models: `forward_type` 'evflow' (a flow
+    for each voxel) or 'eraft' (a flow for each pair of voxels)."""
 
     def __init__(self, configs: Dict[str, Any], *args, **kwargs):
-        forward_type = configs.get("forward_type", "evflow")
-        if forward_type == "eraft":
-            raise NotImplementedError(
-                "forward_type: eraft waits for ERAFT (ROADMAP P10)")
-        if forward_type != "evflow":
-            raise ValueError(f"forward_type {forward_type!r}")
+        self.forward_type = configs.get("forward_type", "evflow")
+        if self.forward_type not in ("evflow", "eraft"):
+            raise ValueError(f"forward_type {self.forward_type!r}")
         super().__init__(configs, *args, **kwargs)
 
     @property
@@ -63,10 +61,13 @@ class FlowModelInterface(ModelInterface):
                          train: bool = False, **_
                          ) -> Tuple[torch.Tensor, Any]:
         """events (B,T,H,W,bins) -> (flow (B,T,H,W,2) float32, final
-        state), padded to a multiple of 16 and cropped back. A model with
-        no state and no BatchNorm runs once over B*T (the same math as a
-        step a time step); otherwise one model step per time step."""
+        state); for ERAFT (B,T-1,H,W,2), see `_forward_eraft`. EVFlowNet's
+        events are padded to a multiple of 16 and cropped back. A model
+        with no state and no BatchNorm runs once over B*T (the same math
+        as a step a time step); otherwise one model step per time step."""
         self.model.train(train)
+        if self.forward_type == "eraft":
+            return self._forward_eraft(events, state, train)
         events, hw = pad_to_multiple(events, 16)
         events, state = self._cast_compute(events, state, train)
         call = self._caller(train)
@@ -84,6 +85,37 @@ class FlowModelInterface(ModelInterface):
                 outs.append(out["flow"].permute(0, 2, 3, 1))
             flows = torch.stack(outs, dim=1)
         return crop_from_multiple(flows, hw).to(torch.float32), state
+
+    def _forward_eraft(self, events: torch.Tensor, state: torch.Tensor,
+                       train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ERAFT on voxel pairs: flow[t] from (events[t], events[t+1]),
+        T_in - 1 flows, with the warm-start flow carried in `state`
+        (model/eraft/eraft.py:141-146). No pad here: ERAFT pads to 32
+        itself. fnet encodes each voxel once, batched over (T+1)*B (each
+        voxel is the second of one pair and the first of the next; fnet's
+        instance norm is per sample, so this equals encoding pair by
+        pair); then the pairs run in order, and in training cnet's
+        BatchNorms take each pair's live statistics, as the reference's
+        pair-by-pair training does. In bf16 training the parameters and
+        events are cast, the carry stays float32 (a coordinate). Each
+        pair's activations stay live for the backward: the JAX package
+        rematerializes a pair in the backward to fit a TPU's memory, which
+        the card's does not need (PERF.md §3)."""
+        if train and self.compute_dtype is not None:
+            events = events.to(self.compute_dtype)
+        call = self._caller(train)
+        b, tp1 = events.shape[:2]
+        voxels = events.permute(1, 0, 4, 2, 3)           # (T+1,B,bins,H,W)
+        fmaps = call(voxels.reshape(tp1 * b, *voxels.shape[2:]),
+                     method="encode")
+        fmaps = fmaps.reshape(tp1, b, *fmaps.shape[1:])
+        flows = []
+        for t in range(tp1 - 1):
+            out, state = call(fmaps[t], fmaps[t + 1], voxels[t + 1], state,
+                              method="step_with_fmaps")
+            flows.append(out["flow"])
+        flows = torch.stack(flows, dim=1).permute(0, 1, 3, 4, 2)
+        return flows.to(torch.float32), state
 
     def calc_loss(self, pred: torch.Tensor, batch: Dict[str, torch.Tensor],
                   remove_flow_loss: bool = False

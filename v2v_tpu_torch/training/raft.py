@@ -24,10 +24,9 @@ and reproduces the reference's offset-transposition quirk.
 """
 from __future__ import annotations
 
-import math
 import os
 import warnings
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,16 +34,11 @@ from torch import nn
 
 from .. import resolve_device
 from ..models.convert import _strip_wrappers
+from ..models.eraft import (convex_upsample, correlation_pyramid,
+                            instance_norm, lookup_pyramid)
 from ..models.init import materialize
 from ..models.submodules import TorchBatchNorm
 from ..ops.conv import conv_as_input
-
-
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """InstanceNorm2d(affine=False, track_running_stats=False)."""
-    mean = x.mean(dim=(2, 3), keepdim=True)
-    var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
-    return (x - mean) * torch.rsqrt(var + eps)
 
 
 class ConvNormAct(nn.Sequential):
@@ -234,64 +228,6 @@ class MaskPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return 0.25 * conv_as_input(self.conv, self.convrelu(x))
-
-
-def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Convex combination 8x upsampling (v2v_tpu/models/eraft.py::
-    convex_upsample; reference model/eraft/eraft.py:66-77): flow
-    (N,2,H,W), mask (N,576,H,W) -> (N,2,8H,8W); each fine pixel is a
-    softmax-weighted mix of the 3x3 coarse neighbours of 8 * flow."""
-    n, _, h, w = flow.shape
-    mask = mask.view(n, 1, 9, 8, 8, h, w).softmax(dim=2)
-    up = F.unfold(8.0 * flow, (3, 3), padding=1).view(n, 2, 9, 1, 1, h, w)
-    up = (mask * up).sum(dim=2)                      # (N,2,8,8,H,W)
-    return up.permute(0, 1, 4, 2, 5, 3).reshape(n, 2, 8 * h, 8 * w)
-
-
-def correlation_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                        num_levels: int = 4) -> List[torch.Tensor]:
-    """All-pairs correlation (accumulated in float32, stored in the fmap
-    dtype) and its avg-pooled pyramid; fmaps (B,C,H,W) -> list of
-    (B*H*W, 1, h_l, w_l)."""
-    b, c, h, w = fmap1.shape
-    f1 = fmap1.reshape(b, c, h * w)
-    f2 = fmap2.reshape(b, c, h * w)
-    corr = torch.matmul(f1.transpose(1, 2).float(), f2.float()) / math.sqrt(c)
-    corr = corr.to(fmap1.dtype).reshape(b * h * w, 1, h, w)
-    pyramid = [corr]
-    for _ in range(num_levels - 1):
-        if corr.shape[-2] >= 2 and corr.shape[-1] >= 2:
-            corr = F.avg_pool2d(corr, 2, 2)
-        pyramid.append(corr)
-    return pyramid
-
-
-def lookup_pyramid(pyramid: List[torch.Tensor], coords: torch.Tensor,
-                   radius: int) -> torch.Tensor:
-    """(2r+1)^2 bilinear window around coords (B,2,H,W) at each level ->
-    (B, levels*(2r+1)^2, H, W). Channel i*k+j samples x offset d[i], y
-    offset d[j] (the reference's meshgrid(dy, dx) quirk,
-    model/eraft/corr.py:37-43)."""
-    b, _, h, w = coords.shape
-    k = 2 * radius + 1
-    q = b * h * w
-    dev = coords.device
-    d = torch.arange(-radius, radius + 1, dtype=torch.float32, device=dev)
-    flat = coords.permute(0, 2, 3, 1).reshape(q, 2).float()
-    out = []
-    for lvl, corr in enumerate(pyramid):
-        plane = corr[:, 0]                                   # (q, hi, wi)
-        hi, wi = plane.shape[-2:]
-        cx = (flat[:, 0] / 2 ** lvl)[:, None, None]
-        cy = (flat[:, 1] / 2 ** lvl)[:, None, None]
-        gy = torch.arange(hi, dtype=torch.float32, device=dev)
-        gx = torch.arange(wi, dtype=torch.float32, device=dev)
-        wy = (1.0 - (cy + d[None, :, None] - gy).abs()).clamp_min(0.0)
-        wx = (1.0 - (cx + d[None, :, None] - gx).abs()).clamp_min(0.0)
-        tmp = torch.bmm(wy.to(plane.dtype), plane)           # (q, k, wi)
-        v = torch.bmm(tmp, wx.to(plane.dtype).transpose(1, 2))  # (q, j, i)
-        out.append(v.transpose(1, 2).reshape(b, h, w, k * k))
-    return torch.cat(out, dim=-1).permute(0, 3, 1, 2)
 
 
 def _pad8(x: torch.Tensor) -> torch.Tensor:
