@@ -77,6 +77,21 @@ Phases, one line each, any failure exits non-zero:
      through the flow run_test on three synthetic 260x346 sequences, two
      with stored GT flow and one scored against RAFT-large pseudo-GT
      ([flow-eval]: finite EPE/1PE/3PE, a state reset a sequence)
+ 14a. the rest of the reconstruction zoo: a float32 train step of each
+     new model and UNet option (FlowNet, ColorE2VID, WFlowNet,
+     FlowNetNoRecur, FireNet, FireNet_legacy; E2VID with convgru, IN, BN
+     and transposed-conv decoders; HyperE2VID with its 3-channel head and
+     the curriculum, K4 and its gradient once a time step), card against
+     CPU, running statistics moving ([zoo-reference]);
+     configs/test_e2vid++_original.yaml's FlowNet at full width through
+     run_test on the two synthetic 720x1280 sequences of [eval], random
+     weights and LPIPS-Alex trunk ([e2vidpp-eval]: finite metrics, a
+     reset a sequence, a finite (1, 2, 720, 1280) flow each frame, no
+     kernel of the port launched); the flagship train config with its
+     model swapped in memory for E2VID++'s FlowNet (the split forward),
+     FireNet at its defaults (the per-step loop) and FlowNetNoRecur (one
+     call over B*T), `--steps` steps each ([zoo-train-*]: K1 once a
+     step)
  14b. ERAFT: a float32 ERAFT step (12 refinements, the extra event
      group) with the random RAFT-large teacher, card against CPU
      ([eraft-reference]); configs/train_v2v_eraft_10k.yaml (B=10, T=40
@@ -328,6 +343,69 @@ ERAFT_TEST_CONFIG = dict(
         for t in EVFLOW_TEST_CONFIG["test_stage"]["test"]]))
 ERAFT_PARAMS = 5_270_080
 ERAFT_EVAL_PARAMS = 5_332_800      # 15 input bins in fnet's and cnet's conv1
+# configs/test_e2vid++_original.yaml: E2VID++ (FlowNet: E2VID's recurrent
+# UNet with an image + flow head); tests/test_torch_zoo_train.py holds it
+# equal to the YAML
+E2VIDPP_MODEL = {"target": "model.model.FlowNet", "params": {"unet_kwargs": {
+    "num_bins": 5, "skip_type": "sum", "recurrent_block_type": "convlstm",
+    "num_encoders": 3, "base_num_channels": 32, "num_residual_blocks": 2,
+    "use_upsample_conv": True, "norm": "none", "num_output_channels": 3}}}
+E2VIDPP_CONFIG = dict(ETNET_CONFIG, experiment_name="e2vid++_original",
+                      test_output_dir="results/e2vid++_original",
+                      module=dict(ETNET_CONFIG["module"],
+                                  model=E2VIDPP_MODEL))
+# [zoo-train]: the flagship train config with its model swapped in memory
+# (no such YAML in configs/) for E2VID++ (the split forward through
+# UNetFlow's tail), FireNet at its published defaults (the per-step loop,
+# ConvGRU) and FlowNetNoRecur on E2VID++'s unet_kwargs (one batched call
+# over B*T); each with its parameter count
+ZOO_TRAIN = {
+    "flownet": (dict(FLAGSHIP_MODULE, model=E2VIDPP_MODEL), 10_710_467),
+    "firenet": (dict(FLAGSHIP_MODULE, model={
+        "target": "model.model.FireNet", "params": {}}), 37_777),
+    "flownet-norecur": (dict(FLAGSHIP_MODULE, model={
+        "target": "model.model.FlowNetNoRecur",
+        "params": E2VIDPP_MODEL["params"]}), 4_515_523),
+}
+# [zoo-reference]: each new model and UNet option in a float32 train step
+# card against CPU (_tiny_module cuts the UNets to width 4), in the
+# flagship's loss: its model, the loss terms it changes, and the
+# HyperE2VID curriculum's beta. E2VID with IN on its pred standardizes
+# each predicted frame to mean 0, where the temporal-consistency term's
+# |p1 - p0w| / (|p1| + |p0w| + 1e-5) amplifies float32 rounding (on the
+# CPU alone float32 and float64 grad norms differ by 9.0e-3 at seed 4,
+# 1.1e-4 without the term: tests/test_torch_zoo_train.py), so that case
+# runs without it
+_FLAGSHIP_UNET = FLAGSHIP_MODULE["model"]["params"]["unet_kwargs"]
+_E2VID = FLAGSHIP_MODULE["model"]["target"]
+
+
+def _e2vid(**unet):
+    return {"target": _E2VID,
+            "params": {"unet_kwargs": dict(_FLAGSHIP_UNET, **unet)}}
+
+
+ZOO_REFERENCE = {
+    "flownet": (E2VIDPP_MODEL, {}, None),
+    "color-e2vid": ({"target": "model.model.ColorE2VID",
+                     "params": E2VIDPP_MODEL["params"]}, {}, None),
+    "wflownet": ({"target": "model.model.WFlowNet",
+                  "params": E2VIDPP_MODEL["params"]}, {}, None),
+    "flownet-norecur": (ZOO_TRAIN["flownet-norecur"][0]["model"], {}, None),
+    "firenet": (ZOO_TRAIN["firenet"][0]["model"], {}, None),
+    "firenet-legacy": ({"target": "model.legacy.FireNet_legacy",
+                        "params": {"unet_kwargs": {
+                            "num_bins": 5, "base_num_channels": 32,
+                            "recurrent_blocks": {"resblock": [0]}}}}, {},
+                       None),
+    "e2vid-convgru": (_e2vid(recurrent_block_type="convgru"), {}, None),
+    "e2vid-in": (_e2vid(norm="IN"), {"temporal_consistency_weight": 0.0},
+                 None),
+    "e2vid-bn": (_e2vid(norm="BN"), {}, None),
+    "e2vid-transposed": (_e2vid(use_upsample_conv=False), {}, None),
+    "hypere2vid-3ch": ({"target": HYPER_MODEL["target"], "params": {
+        "unet_kwargs": dict(HYPER_UNET, num_output_channels=3)}}, {}, 0.7),
+}
 # [flow-eval]: MVSEC's DAVIS346 frame (EVAL_FRAMES frames a sequence,
 # the config's sequence_length of 80 cut as the other evals' are);
 # events a frame, of MVSEC's order (~1e4-1e5 between flow timestamps);
@@ -1148,13 +1226,14 @@ def phase_k4_backward(torch, dev, seed):
 def _tiny_module(l0: int, module=None):
     """A train config's module in float32 with L0 cut to `l0`: a UNet
     model cut to width 4 and 1 residual block, ETNet at full width with
-    dropout 0 (the card and the CPU draw different streams)."""
+    dropout 0 (the card and the CPU draw different streams), FireNet
+    (no unet_kwargs) at its own width."""
     mod = json.loads(json.dumps(module or FLAGSHIP_MODULE))
     mod["loss"]["temporal_consistency_L0"] = l0
     params = mod["model"]["params"]
     if "eitr_kwargs" in params:
         params["eitr_kwargs"]["dropout"] = 0.0
-    else:
+    elif "unet_kwargs" in params:
         params["unet_kwargs"].update(base_num_channels=4,
                                      num_residual_blocks=1)
     mod.pop("compute_dtype")
@@ -1167,8 +1246,9 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
     on the card against the same step on the CPU, same weights and
     voxels: the CPU path is the one the tier-1 tests hold against JAX.
     With `hyper_beta` the HyperE2VID curriculum runs, K4 and its gradient
-    must launch once a time step each on the card, and the BatchNorm
-    running statistics (in the state_dict) must agree too."""
+    must launch once a time step each on the card. Running statistics
+    (BatchNorm, InstanceNorm; in the state_dict) must agree too, and
+    move on the card."""
     import copy
     from v2v_tpu_torch.losses.lpips import LPIPS
     from v2v_tpu_torch.ops.voxel import SimConfig
@@ -1194,7 +1274,8 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
                                teacher=copy.deepcopy(teacher).to(d))
         iface.teacher_dtype = None
         if d == dev:
-            state = {k: v.to(cpu) for k, v in iface.model.state_dict().items()}
+            state = {k: v.to(cpu, copy=True)
+                     for k, v in iface.model.state_dict().items()}
         else:
             iface.model.load_state_dict(state)
         opt = Adam(lr=lr, amsgrad=True).make(iface.model.parameters())
@@ -1210,10 +1291,17 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
     fwd = [n["dynamic_shift_sum"] for n in (nc, nh)]
     bwd = [n["dynamic_shift_sum_backward"] for n in (nc, nh)]
     perr = max(float((pc[k] - ph[k]).abs().max()) for k in pc)
-    _log(f"[{tag}] loss cuda {lc:.6f} cpu {lh:.6f}  grad_norm cuda "
-         f"{gc:.6f} cpu {gh:.6f}  max|state_dict diff| after step "
-         f"{perr:.2e}; K4 launches {fwd[0]} on the card, {fwd[1]} on the "
-         f"CPU; its gradient {bwd[0]} on the card, {bwd[1]} on the CPU")
+    stats = [k for k in pc if k.endswith(("running_mean", "running_var"))]
+    moved = min((float((pc[k] - state[k]).abs().max()) for k in stats),
+                default=None)
+    _log(f"[{tag}] {type(iface.model).__name__}: loss cuda {lc:.6f} cpu "
+         f"{lh:.6f}  grad_norm cuda {gc:.6f} cpu {gh:.6f}  max|state_dict "
+         f"diff| after step {perr:.2e}; K4 launches {fwd[0]} on the card, "
+         f"{fwd[1]} on the CPU; its gradient {bwd[0]} on the card, {bwd[1]} "
+         f"on the CPU" + (f"; {len(stats)} running statistics, each moved "
+                          f"by at least {moved:.2e}" if stats else ""))
+    _require(not stats or moved > 0,
+             f"{tag}: a running statistic did not move")
     _require(math.isfinite(lc) and abs(lc - lh) <= 1e-4 * abs(lh),
              f"{tag}: loss differs between card and CPU")
     _require(abs(gc - gh) <= 1e-3 * abs(gh), f"{tag}: grad norm differs")
@@ -1225,6 +1313,17 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
     _require(fwd == [want, 0] and bwd == [want, 0],
              f"{tag}: K4 or K4 backward launch count")
     _tf32(torch, True)
+
+
+def phase_zoo_reference(torch, dev, seed):
+    """[zoo-reference]: phase_reference for each model and UNet option of
+    ZOO_REFERENCE in the flagship's loss with its changes (HyperE2VID's
+    3-channel head in its own train config, with the curriculum)."""
+    for name, (model, loss, hyper_beta) in ZOO_REFERENCE.items():
+        base = FLAGSHIP_MODULE if hyper_beta is None else HYPER_TRAIN_MODULE
+        phase_reference(torch, dev, seed, dict(
+            base, model=model, loss=dict(base["loss"], **loss)),
+            f"zoo-reference {name}", hyper_beta)
 
 
 def _profile(torch, tag, fn):
@@ -1966,10 +2065,12 @@ def phase_eval(torch, dev, seed, profile=False, config=None,
     """A test config's model (default configs/test_etnet_original.yaml's
     ETNet) through the port's run_test on two synthetic 720x1280
     sequences, timed per frame; `kernel` must launch `per_frame` times a
-    frame. Every prediction is finite; a model whose output ends in a
-    sigmoid (ETNet's) must also predict in [0, 1] before the harness
-    clips. HyperE2VID's has no final activation, so no range holds for
-    it."""
+    frame (`kernel` None: no kernel of the port launches). Every
+    prediction is finite; a model whose output ends in a sigmoid
+    (ETNet's) must also predict in [0, 1] before the harness clips.
+    HyperE2VID's has no final activation, so no range holds for it. A
+    model with a flow output (E2VID++) must give a finite (B, 2, H, W)
+    flow each frame, which the harness does not score."""
     from v2v_tpu_torch.data.interface import ConcatDataset
     from v2v_tpu_torch.eval import harness
     from v2v_tpu_torch.losses.lpips import LPIPS
@@ -1987,7 +2088,7 @@ def phase_eval(torch, dev, seed, profile=False, config=None,
                                EVAL_HW, EVAL_EVENTS_PER_FRAME, data_cfg)
             for i in range(2)]
     model = iface.model
-    times, outs = [], []
+    times, outs, flows = [], [], []
 
     def timed_forward(*args, **kw):
         torch.cuda.synchronize()
@@ -1996,6 +2097,9 @@ def phase_eval(torch, dev, seed, profile=False, config=None,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out["image"].detach().clone())
+        if "flow" in out:
+            flows.append((tuple(out["flow"].shape),
+                          bool(torch.isfinite(out["flow"]).all())))
         return out, states
 
     model.forward = timed_forward
@@ -2017,10 +2121,22 @@ def phase_eval(torch, dev, seed, profile=False, config=None,
     launches = _read_launches()
     n_frames = 2 * EVAL_FRAMES
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    _require(launches[kernel] == per_frame * n_frames,
-             f"{tag}: {kernel} launched {launches[kernel]} times in "
-             f"{n_frames} frames")
+    if kernel is None:
+        _require(not any(launches.values()),
+                 f"{tag}: kernels launched {launches}")
+    else:
+        _require(launches[kernel] == per_frame * n_frames,
+                 f"{tag}: {kernel} launched {launches[kernel]} times in "
+                 f"{n_frames} frames")
     _require(len(outs) == n_frames, f"{tag}: {len(outs)} model steps")
+    if flows:
+        want = (1, 2) + EVAL_HW
+        _log(f"[{tag}] flow output: {len(flows)} frames, shapes "
+             f"{sorted(set(f[0] for f in flows))}, finite "
+             f"{all(f[1] for f in flows)}")
+        _require(len(flows) == n_frames and all(
+            f == (want, True) for f in flows),
+            f"{tag}: the flow output is not a finite {want} each frame")
     for img in outs:
         _require(bool(torch.isfinite(img).all()), f"{tag}: non-finite pred")
         _require(not sigmoid_output or (float(img.min()) >= 0.0
@@ -2458,6 +2574,15 @@ def main(argv=None) -> int:
         if args.profile:
             phase_flow_profile(torch, dev, args.seed)
         phase_flow_eval(torch, dev, args.seed, args.profile)
+        phase_zoo_reference(torch, dev, args.seed)
+        paths["e2vidpp-eval"], _ = phase_eval(
+            torch, dev, args.seed, args.profile, E2VIDPP_CONFIG, None, 0,
+            "e2vidpp-eval", sigmoid_output=False)
+        for name, (module, n_params) in ZOO_TRAIN.items():
+            paths[f"zoo-train-{name}"], _ = phase_slice(
+                torch, dev, args.seed, args.steps,
+                args.profile and name == "flownet", module, FLAGSHIP_STAGE,
+                n_params, f"zoo-train-{name}")
         phase_eraft_reference(torch, dev, args.seed)
         paths["eraft-train"], _ = phase_driver(
             torch, dev, args.seed, module=ERAFT_TRAIN_MODULE,

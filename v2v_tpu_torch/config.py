@@ -14,7 +14,13 @@ from typing import Any, Dict
 # Reference target string -> v2v_tpu_torch implementation path.
 TARGET_ALIASES: Dict[str, str] = {
     "model.model.E2VIDRecurrent": "v2v_tpu_torch.models.model.E2VIDRecurrent",
+    "model.model.FlowNet": "v2v_tpu_torch.models.model.FlowNet",
+    "model.model.ColorE2VID": "v2v_tpu_torch.models.model.ColorE2VID",
+    "model.model.WFlowNet": "v2v_tpu_torch.models.model.WFlowNet",
+    "model.model.FlowNetNoRecur": "v2v_tpu_torch.models.model.FlowNetNoRecur",
     "model.model.EVFlowNet": "v2v_tpu_torch.models.model.EVFlowNet",
+    "model.model.FireNet": "v2v_tpu_torch.models.model.FireNet",
+    "model.legacy.FireNet_legacy": "v2v_tpu_torch.models.legacy.FireNetLegacy",
     "model.eitr.eitr.EITR": "v2v_tpu_torch.models.eitr.EITR",
     "model.hyper_model.HyperE2VID": "v2v_tpu_torch.models.hyper.HyperE2VID",
     "model.eraft.eraft.ERAFT": "v2v_tpu_torch.models.eraft.ERAFT",

@@ -1,5 +1,5 @@
 """Training losses over NHWC tensors (port of v2v_tpu/losses/losses.py:
-l1_loss and temporal_consistency_loss).
+l1_loss, l2_loss and temporal_consistency_loss).
 
 Per-batch losses return (B,) when reduce_batch=False, for the
 per-source bookkeeping of calc_loss.
@@ -21,6 +21,12 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor, weight: float = 1.0,
             reduce_batch: bool = True) -> torch.Tensor:
     """Reference model/loss.py:135-147."""
     return weight * _reduce((pred - target).abs(), reduce_batch)
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor, weight: float = 1.0,
+            reduce_batch: bool = True) -> torch.Tensor:
+    """Reference model/loss.py:121-133: the mean squared error."""
+    return weight * _reduce((pred - target) ** 2, reduce_batch)
 
 
 def temporal_consistency_loss(image0, image1, processed0, processed1,

@@ -1,19 +1,21 @@
-"""LPIPS perceptual distance (port of v2v_tpu/losses/lpips.py for
-net="vgg", the training loss, and net="alex", the test metric).
+"""LPIPS perceptual distance (port of v2v_tpu/losses/lpips.py: net="vgg",
+the flagship's training loss, net="alex", the test metric, and
+net="squeeze", SqueezeNet 1.1).
 
-Frozen VGG16 or AlexNet trunk -> per-layer channel-unit-normalized
-activations -> squared difference -> non-negative 1x1 linear
-calibration -> spatial mean -> sum over the five taps
-(PerceptualSimilarity v0.1). The linear heads ship with this package
-(losses/weights/lpips_lin_{vgg,alex}.npz). The ImageNet trunks are
-torchvision checkpoints that cannot be shipped: put
-`vgg16-397923af.pth` / `alexnet-owt-7be5be79.pth` in $V2V_WEIGHTS_DIR
-(default ./pretrained) or pass `torch_backbone_path`. Without one the
-trunk is fixed random features (He init from the given generator) — a
-valid training signal but NOT comparable to published LPIPS numbers; a
-loud warning says so.
+Frozen trunk -> per-layer channel-unit-normalized activations ->
+squared difference -> non-negative 1x1 linear calibration -> spatial
+mean -> sum over the taps (PerceptualSimilarity v0.1; five taps for VGG
+and AlexNet, seven for SqueezeNet). The linear heads ship with this
+package (losses/weights/lpips_lin_{vgg,alex,squeeze}.npz). The ImageNet
+trunks are torchvision checkpoints that cannot be shipped: put
+`vgg16-397923af.pth` / `alexnet-owt-7be5be79.pth` /
+`squeezenet1_1-b8a52dc0.pth` in $V2V_WEIGHTS_DIR (default ./pretrained)
+or pass `torch_backbone_path`. Without one the trunk is fixed random
+features (He init from the given generator) — a valid training signal
+but NOT comparable to published LPIPS numbers; a loud warning says so.
 
-Module names mirror the JAX tree (`features.conv{i}`, `lin{i}`), so
+Module names mirror the JAX tree (`features.conv{i}`,
+`features.fire{i}.{squeeze,expand1x1,expand3x3}`, `lin{i}`), so
 v2v_tpu/models/convert.py::torch_state_dict_to_flax maps this module's
 state_dict onto the JAX LPIPS params.
 """
@@ -34,7 +36,8 @@ from ..ops.conv import conv_as_input
 
 _WEIGHTS_DIR = os.path.join(os.path.dirname(__file__), "weights")
 _BACKBONE_FILES = {"alex": "alexnet-owt-7be5be79.pth",
-                   "vgg": "vgg16-397923af.pth"}
+                   "vgg": "vgg16-397923af.pth",
+                   "squeeze": "squeezenet1_1-b8a52dc0.pth"}
 
 # ScalingLayer constants (PerceptualSimilarity/models/networks_basic.py)
 _SHIFT = (-0.030, -0.088, -0.188)
@@ -54,6 +57,17 @@ _TRUNKS = {
               (256, 3, 1, 1), (256, 3, 1, 1)],
              (3, 2), (0, 1, 2, 3, 4)),
 }
+
+# SqueezeNet 1.1's features (v2v_tpu/losses/lpips.py:150-182): a
+# stride-2 3x3 conv, then by torchvision Sequential index the Fire
+# modules (squeeze, expand) and the ceil-mode 3x3/2 max pools; seven taps
+_SQUEEZE_FIRES = {3: (16, 64), 4: (16, 64), 6: (32, 128), 7: (32, 128),
+                  9: (48, 192), 10: (48, 192), 11: (64, 256), 12: (64, 256)}
+_SQUEEZE_POOLS = (2, 5, 8)
+_SQUEEZE_TAPS = (1, 4, 7, 9, 10, 11, 12)
+_TAP_CHANNELS = {"alex": [64, 192, 384, 256, 256],
+                 "vgg": [64, 128, 256, 512, 512],
+                 "squeeze": [64, 128, 256, 384, 384, 512, 512]}
 
 _warned = set()
 
@@ -84,6 +98,44 @@ class _Features(nn.Module):
         return feats
 
 
+class _Fire(nn.Module):
+    """torchvision's SqueezeNet Fire: a 1x1 squeeze, relu, then parallel
+    1x1 and 3x3 expands, relu, concatenated over channels."""
+
+    def __init__(self, cin: int, squeeze: int, expand: int):
+        super().__init__()
+        self.squeeze = nn.Conv2d(cin, squeeze, 1)
+        self.expand1x1 = nn.Conv2d(squeeze, expand, 1)
+        self.expand3x3 = nn.Conv2d(squeeze, expand, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(conv_as_input(self.squeeze, x))
+        return torch.cat([torch.relu(conv_as_input(self.expand1x1, x)),
+                          torch.relu(conv_as_input(self.expand3x3, x))], 1)
+
+
+class _SqueezeFeatures(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv0 = nn.Conv2d(3, 64, 3, 2)
+        cin = 64
+        for i, (sq, ex) in _SQUEEZE_FIRES.items():
+            self.add_module(f"fire{i}", _Fire(cin, sq, ex))
+            cin = 2 * ex
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = torch.relu(conv_as_input(self.conv0, x))
+        feats = [x]
+        for i in range(2, 13):
+            if i in _SQUEEZE_POOLS:
+                x = F.max_pool2d(x, 3, 2, ceil_mode=True)
+            else:
+                x = getattr(self, f"fire{i}")(x)
+            if i in _SQUEEZE_TAPS:
+                feats.append(x)
+        return feats
+
+
 def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     return x / (torch.sqrt((x * x).sum(dim=1, keepdim=True)) + eps)
 
@@ -91,15 +143,15 @@ def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 class _LPIPSModule(nn.Module):
     def __init__(self, net: str):
         super().__init__()
-        self.features = _Features(net)
-        for i, idx in enumerate(self.features.taps):
-            ch = self.features.get_submodule(f"conv{idx}").out_channels
+        self.features = (_SqueezeFeatures() if net == "squeeze"
+                         else _Features(net))
+        for i, ch in enumerate(_TAP_CHANNELS[net]):
             self.register_parameter(f"lin{i}", nn.Parameter(torch.ones(ch)))
 
 
 class LPIPS:
-    """Frozen LPIPS("vgg" or "alex"). Inputs NHWC; `__call__` returns (B,)
-    float32.
+    """Frozen LPIPS("vgg", "alex" or "squeeze"). Inputs NHWC; `__call__`
+    returns (B,) float32.
 
     `features` / `dist_from_features` split the computation so the
     training loss computes the GT branch once, outside autograd."""
@@ -107,10 +159,9 @@ class LPIPS:
     def __init__(self, net: str = "vgg", device=None,
                  generator: Optional[torch.Generator] = None,
                  torch_backbone_path: Optional[str] = None):
-        if net not in _TRUNKS:
-            raise NotImplementedError(
-                f"LPIPS({net!r}): the port covers the VGG and AlexNet "
-                f"trunks")
+        if net not in _TAP_CHANNELS:
+            raise ValueError(f"LPIPS({net!r}): the nets are vgg, alex and "
+                             f"squeeze")
         self.net = net
         self.device = resolve_device(device)
         if generator is None:
@@ -141,15 +192,24 @@ class LPIPS:
 
     def _load_backbone(self, path: str) -> None:
         """torchvision vgg16/alexnet `features.{i}` convs, in order, ->
-        conv{n}."""
+        conv{n}; squeezenet1_1's `features.0` -> conv0 and its Fire
+        modules `features.{i}.*` -> fire{i}.*."""
         sd = torch.load(path, map_location="cpu")
-        idxs = sorted({int(k.split(".")[1]) for k in sd
-                       if k.startswith("features") and k.endswith("weight")})
+        if self.net == "squeeze":
+            names = {"conv0": "features.0"}
+            names.update({f"fire{i}.{c}": f"features.{i}.{c}"
+                          for i in _SQUEEZE_FIRES
+                          for c in ("squeeze", "expand1x1", "expand3x3")})
+        else:
+            idxs = sorted({int(k.split(".")[1]) for k in sd
+                           if k.startswith("features")
+                           and k.endswith("weight")})
+            names = {f"conv{n}": f"features.{i}" for n, i in enumerate(idxs)}
         with torch.no_grad():
-            for n, i in enumerate(idxs):
-                conv = getattr(self.module.features, f"conv{n}")
-                conv.weight.copy_(sd[f"features.{i}.weight"])
-                conv.bias.copy_(sd[f"features.{i}.bias"])
+            for ours, theirs in names.items():
+                conv = self.module.features.get_submodule(ours)
+                conv.weight.copy_(sd[f"{theirs}.weight"])
+                conv.bias.copy_(sd[f"{theirs}.bias"])
 
     def prep(self, x: torch.Tensor, normalize: bool,
              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -1,18 +1,23 @@
 """Flax parameter trees (as numpy) -> torch state_dicts.
 
 The inverse of v2v_tpu/models/convert.py::torch_state_dict_to_flax for
-the modules this package ports (E2VID, ETNet, HyperE2VID, ERAFT, the
-RAFT teachers, the LPIPS trunks): carries weights from the JAX reference
-into the port, so parity tests run both on the same numbers. Rules:
+the modules this package ports (the recurrent UNet zoo, EVFlowNet,
+FireNet and its legacy form, ETNet, HyperE2VID, ERAFT, the RAFT
+teachers, the LPIPS trunks): carries weights from the JAX reference into
+the port, so parity tests run both on the same numbers. Rules:
 
   * kernel (kH,kW,I,O) -> weight (O,I,kH,kW); kernel (I,O) -> weight (O,I)
+  * a transposed conv's kernel (kH,kW,O,I) (flax ConvTranspose with
+    transpose_kernel) -> weight (I,O,kH,kW): the same permutation
   * packed attention in_proj_kernel (d,3d) -> in_proj_weight (3d,d)
   * DynamicConv compositional_coefficients (1,1,I,O) -> (O,I,1,1)
   * scale -> weight; other leaves keep their name
-  * batch_stats {mean, var} -> running_mean / running_var, with
+  * batch_stats {mean, var} (BatchNorm, or InstanceNorm with running
+    statistics) -> running_mean / running_var, with
     num_batches_tracked 0 (JAX does not count batches)
   * flax child `encoders_0` of a torch ModuleList -> `encoders.0`
-  * the decoder stack's `decoders/decoders_0` -> `decoders.0`
+  * a decoder stack's `decoders/decoders_0` -> `decoders.0` (also
+    `image_decoders` and `flow_decoders`, WNet's two stacks)
   * ETNet's stacked streams `tri_encoder`/`tri_decoder` (leading axis 3)
     -> `trans_encoder{i}.encoder` / `trans_decoder{i}.decoder`
   * a residual block's `norm3` also as `downsample.1`, ERAFT's second
@@ -32,7 +37,7 @@ import torch
 _MODULELISTS = ("encoders", "resblocks", "layer1", "layer2", "layer3",
                 "downsample", "mask", "DownsampleConv", "UpsampleConv",
                 "layers", "bases_net")
-_DECODER_STACKS = ("decoders",)
+_DECODER_STACKS = ("decoders", "image_decoders", "flow_decoders")
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 
 

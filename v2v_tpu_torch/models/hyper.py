@@ -160,14 +160,19 @@ class HyperUNetRecurrent(UNetRecurrent):
     def __init__(self, cfg: UNetConfig):
         super().__init__(cfg)
         self.decoders[0] = DynamicUpsampleLayer(
-            cfg.encoder_output_sizes[-1], cfg.encoder_input_sizes[-1],
+            cfg.decoder_input_sizes[0], cfg.encoder_input_sizes[-1],
             cfg.kernel_size, in_fuse_channels=1 + cfg.num_bins)
 
     def forward(self, x: torch.Tensor, states: List[LSTMState],
                 prev_recs: torch.Tensor):
         head, pre0 = self.pre(x)
         blocks, new_states = self.spine_step(pre0, states)
-        return self.tail(head, blocks, (x, prev_recs)), new_states
+        out = self.tail(head, blocks, (x, prev_recs))
+        if self.cfg.num_output_channels == 3:
+            # the image (1) + flow (2) head split (hyper_model.py:193-195)
+            img = out["image"]
+            out = {"image": img[:, 0:1], "flow": img[:, 1:3]}
+        return out, new_states
 
 
 HyperState = Tuple[List[LSTMState], torch.Tensor]
@@ -177,14 +182,13 @@ class HyperE2VID(nn.Module):
     """Reference target `model.hyper_model.HyperE2VID`. State =
     (encoder states, prev_recs (B,1,H,W)). `forward(x, state, gt=None,
     beta=None, method="step")` is one recurrent step, as E2VIDRecurrent's
-    `method="step"`; there are no split entry points."""
+    `method="step"`; there are no split entry points. With
+    `num_output_channels: 3` the head's channels are the image [0:1] and
+    the flow [1:3]; the image alone feeds back as prev_recs."""
 
     def __init__(self, unet_kwargs: Dict[str, Any]):
         super().__init__()
         cfg = UNetConfig.from_kwargs(dict(unet_kwargs))
-        if cfg.num_output_channels != 1:
-            raise NotImplementedError("the port covers HyperE2VID with "
-                                      "num_output_channels 1 only")
         self.cfg = cfg
         self.unetrecurrent = HyperUNetRecurrent(cfg)
 

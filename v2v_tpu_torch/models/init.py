@@ -20,18 +20,19 @@ def default_generator(device: torch.device, seed: int = 0
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator,
                  scheme: str = "uniform") -> nn.Module:
-    """Refill every Conv2d. 'uniform': torch's default, weight and bias
-    ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)). 'he': weight ~ N(0, 2/fan_in),
-    bias 0. Linear layers get torch's default uniform, LayerNorms ones
-    and zeros, BatchNorms ones and zeros with mean 0, var 1 and no batch
-    counted, and a module with an `init_params_(generator)` method fills
+    """Refill every Conv2d and ConvTranspose2d. 'uniform': torch's
+    default, weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)). 'he':
+    weight ~ N(0, 2/fan_in), bias 0. Linear layers get torch's default
+    uniform, LayerNorms ones and zeros, BatchNorms (and instance norms
+    with running statistics) ones and zeros with mean 0, var 1 and no
+    batch counted, and a module with an `init_params_(generator)` method fills
     its own parameters and buffers."""
     for m in module.modules():
         if isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
             continue
-        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+        if isinstance(m, nn.modules.batchnorm._NormBase):
             m.reset_parameters()
             continue
         if hasattr(m, "init_params_"):
@@ -42,9 +43,11 @@ def init_params_(module: nn.Module, generator: torch.Generator,
             m.weight.uniform_(-bound, bound, generator=generator)
             m.bias.uniform_(-bound, bound, generator=generator)
             continue
-        if not isinstance(m, nn.Conv2d):
+        if not isinstance(m, nn.modules.conv._ConvNd):
             continue
-        fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+        # torch's fan_in: weight.shape[1] (in/groups for a conv, out/groups
+        # for a transposed conv) times the kernel's area
+        fan_in = m.weight.shape[1] * m.kernel_size[0] * m.kernel_size[1]
         if scheme == "uniform":
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)

@@ -1,14 +1,14 @@
-"""E2VID's recurrent UNet and EVFlowNet's plain UNet (NCHW, explicit
-state lists).
+"""The UNet family (NCHW, explicit state lists).
 
-Port of v2v_tpu/models/unet.py (UNetConfig, _RecurrentUNetBase,
-UNetRecurrent, _encoder_states, UNet). The recurrent step splits into
-three entry points so the task interface can run the temporally
-independent convs batched over B*T:
+Port of v2v_tpu/models/unet.py: UNetConfig, the recurrent UNets
+(UNetRecurrent for E2VID, UNetFlow for E2VID++ and ColorE2VID, WNet for
+WFlowNet), UNetFlowNoRecur and the plain UNet of EVFlowNet. The
+recurrent step splits into three entry points so the task interface can
+run the temporally independent convs batched over B*T:
 
     pre(x)               -> (head, pre0)   head conv + encoder-0 conv
     spine_step(pre0, st) -> (blocks, st')  encoder-0 cell, encoders 1..
-    tail(head, blocks)   -> {'image'}      resblocks, decoders, pred
+    tail(head, blocks)   -> out dict       resblocks, decoders, pred
 
 `forward` composes the three (one recurrent step).
 """
@@ -21,8 +21,9 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from .submodules import (ConvLayer, LSTMState, RecurrentConvLayer,
-                         ResidualBlock, UpsampleConvLayer, activation_fn)
+from .submodules import (ConvLayer, RecurrentConvLayer, ResidualBlock,
+                         TransposedConvLayer, UpsampleConvLayer,
+                         activation_fn, zero_cell_state)
 
 
 @dataclasses.dataclass
@@ -64,10 +65,6 @@ class UNetConfig:
             cfg.final_activation = None
         if cfg.skip_type not in ("sum", "concat"):
             raise ValueError(f"skip_type {cfg.skip_type!r}")
-        if not cfg.use_upsample_conv:
-            raise NotImplementedError(
-                "use_upsample_conv false (TransposedConvLayer) is not "
-                "ported: no config sets it")
         return cfg
 
     @property
@@ -85,25 +82,58 @@ class UNetConfig:
         return self.encoder_output_sizes[-1]
 
     @property
+    def skip_width(self) -> int:
+        """2 when a skip concatenates (the reference's `2 * input_size`),
+        else 1."""
+        return 2 if self.skip_type == "concat" else 1
+
+    @property
     def decoder_input_sizes(self) -> List[int]:
-        """Each decoder's input width: its skip doubles it under concat
-        (the reference's `2 * input_size`)."""
-        k = 2 if self.skip_type == "concat" else 1
-        return [k * c for c in reversed(self.encoder_output_sizes)]
+        """Each decoder's input width, its skip included."""
+        return [self.skip_width * c
+                for c in reversed(self.encoder_output_sizes)]
 
     def skip(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """skip_sum or skip_concat (over channels)."""
         return x + y if self.skip_type == "sum" else torch.cat([x, y], 1)
 
+    def decoders(self) -> nn.ModuleList:
+        """The decoder stack: UpsampleConvLayer, or TransposedConvLayer
+        when use_upsample_conv is false, each halving the width."""
+        layer = (UpsampleConvLayer if self.use_upsample_conv
+                 else TransposedConvLayer)
+        return nn.ModuleList(
+            layer(cin, cout, self.kernel_size, norm=self.norm)
+            for cin, cout in zip(self.decoder_input_sizes,
+                                 reversed(self.encoder_input_sizes)))
 
-class UNetRecurrent(nn.Module):
-    """E2VID backbone (model/unet.py:252-310)."""
+    def resblocks(self) -> nn.ModuleList:
+        return nn.ModuleList(
+            ResidualBlock(self.max_num_channels, self.max_num_channels,
+                          self.norm)
+            for _ in range(self.num_residual_blocks))
+
+
+def _decode(cfg: UNetConfig, decoders: nn.ModuleList, x: torch.Tensor,
+            blocks: List[torch.Tensor], dec0_args: tuple = ()
+            ) -> torch.Tensor:
+    """The decoder stack over `x` with the encoders' skips; `dec0_args`
+    go to the first decoder after its input (HyperE2VID's dynamic
+    decoder)."""
+    n = cfg.num_encoders
+    for i, dec in enumerate(decoders):
+        x = dec(cfg.skip(x, blocks[n - i - 1]), *(dec0_args if i == 0
+                                                   else ()))
+    return x
+
+
+class _RecurrentUNetBase(nn.Module):
+    """The recurrent UNets' head, recurrent encoders and residual
+    blocks, with the split entry points; a subclass adds its decoders
+    and `tail`."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.skip_type != "sum":
-            raise NotImplementedError(
-                "the port covers the recurrent UNets with skip_type sum")
         self.cfg = cfg
         k = cfg.kernel_size
         self.head = ConvLayer(cfg.num_bins, cfg.base_num_channels, k, 1)
@@ -112,23 +142,13 @@ class UNetRecurrent(nn.Module):
                                norm=cfg.norm)
             for cin, cout in zip(cfg.encoder_input_sizes,
                                  cfg.encoder_output_sizes))
-        self.resblocks = nn.ModuleList(
-            ResidualBlock(cfg.max_num_channels, cfg.max_num_channels,
-                          cfg.norm)
-            for _ in range(cfg.num_residual_blocks))
-        self.decoders = nn.ModuleList(
-            UpsampleConvLayer(cin, cout, k, norm=cfg.norm)
-            for cin, cout in zip(reversed(cfg.encoder_output_sizes),
-                                 reversed(cfg.encoder_input_sizes)))
-        self.pred = ConvLayer(cfg.base_num_channels, cfg.num_output_channels,
-                              1, activation=None, norm=cfg.norm)
-        self.final_activation = activation_fn(cfg.final_activation)
+        self.resblocks = cfg.resblocks()
 
     def pre(self, x: torch.Tensor):
         head = self.head(x)
         return head, self.encoders[0].apply_conv(head)
 
-    def spine_step(self, pre0: torch.Tensor, states: List[LSTMState]):
+    def spine_step(self, pre0: torch.Tensor, states: List[Any]):
         blocks, new_states = [], []
         x, s = self.encoders[0].apply_cell(pre0, states[0])
         blocks.append(x)
@@ -139,25 +159,115 @@ class UNetRecurrent(nn.Module):
             new_states.append(s)
         return blocks, new_states
 
-    def tail(self, head: torch.Tensor, blocks: List[torch.Tensor],
-             dec0_args: tuple = ()) -> Dict[str, torch.Tensor]:
-        """Resblocks, decoders with sum skips, pred; `dec0_args` go to the
-        first decoder after its input (HyperE2VID's dynamic decoder)."""
+    def _bottleneck(self, blocks: List[torch.Tensor]) -> torch.Tensor:
         x = blocks[-1]
         for rb in self.resblocks:
             x = rb(x)
-        n = self.cfg.num_encoders
-        for i, dec in enumerate(self.decoders):
-            x = dec(x + blocks[n - i - 1], *(dec0_args if i == 0 else ()))
-        img = self.pred(x + head)
+        return x
+
+    def forward(self, x: torch.Tensor, states: List[Any]):
+        head, pre0 = self.pre(x)
+        blocks, new_states = self.spine_step(pre0, states)
+        return self.tail(head, blocks), new_states
+
+
+class UNetRecurrent(_RecurrentUNetBase):
+    """E2VID backbone (model/unet.py:252-310)."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__(cfg)
+        self.decoders = cfg.decoders()
+        self.pred = ConvLayer(cfg.skip_width * cfg.base_num_channels,
+                              cfg.num_output_channels, 1, activation=None,
+                              norm=cfg.norm)
+        self.final_activation = activation_fn(cfg.final_activation)
+
+    def tail(self, head: torch.Tensor, blocks: List[torch.Tensor],
+             dec0_args: tuple = ()) -> Dict[str, torch.Tensor]:
+        """Resblocks, decoders with skips, pred; `dec0_args` go to the
+        first decoder after its input (HyperE2VID's dynamic decoder)."""
+        x = _decode(self.cfg, self.decoders, self._bottleneck(blocks),
+                    blocks, dec0_args)
+        img = self.pred(self.cfg.skip(x, head))
         if self.final_activation is not None:
             img = self.final_activation(img)
         return {"image": img}
 
-    def forward(self, x: torch.Tensor, states: List[LSTMState]):
-        head, pre0 = self.pre(x)
-        blocks, new_states = self.spine_step(pre0, states)
-        return self.tail(head, blocks), new_states
+
+class UNetFlow(_RecurrentUNetBase):
+    """E2VID++ backbone (model/unet.py:133-194): one decoder stack and a
+    3-channel pred, split into image [0:1] and flow [1:3], or all three
+    channels as the image when `img_3c` (ColorE2VID)."""
+
+    def __init__(self, cfg: UNetConfig, img_3c: bool = False):
+        super().__init__(cfg)
+        self.img_3c = img_3c
+        self.decoders = cfg.decoders()
+        self.pred = ConvLayer(cfg.skip_width * cfg.base_num_channels, 3, 1,
+                              activation=None)
+
+    def tail(self, head: torch.Tensor, blocks: List[torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        x = _decode(self.cfg, self.decoders, self._bottleneck(blocks),
+                    blocks)
+        img_flow = self.pred(self.cfg.skip(x, head))
+        if self.img_3c:
+            return {"image": img_flow}
+        return {"image": img_flow[:, 0:1], "flow": img_flow[:, 1:3]}
+
+
+class WNet(_RecurrentUNetBase):
+    """The dual-decoder recurrent UNet (model/unet.py:66-130): separate
+    flow and image decoder stacks and preds (2 and 1 channels)."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__(cfg)
+        self.flow_decoders = cfg.decoders()
+        self.image_decoders = cfg.decoders()
+        width = cfg.skip_width * cfg.base_num_channels
+        self.flow_pred = ConvLayer(width, 2, 1, activation=None)
+        self.image_pred = ConvLayer(width, 1, 1, activation=None)
+
+    def tail(self, head: torch.Tensor, blocks: List[torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        x = self._bottleneck(blocks)
+        flow_x = _decode(cfg, self.flow_decoders, x, blocks)
+        img_x = _decode(cfg, self.image_decoders, x, blocks)
+        return {"image": self.image_pred(cfg.skip(img_x, head)),
+                "flow": self.flow_pred(cfg.skip(flow_x, head))}
+
+
+class UNetFlowNoRecur(nn.Module):
+    """UNetFlow without recurrence (model/unet.py:197-249): strided conv
+    encoders, residual blocks, decoders, a 3-channel pred split into
+    image [0:1] and flow [1:3]."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        k = cfg.kernel_size
+        self.head = ConvLayer(cfg.num_bins, cfg.base_num_channels, k, 1)
+        self.encoders = nn.ModuleList(
+            ConvLayer(cin, cout, k, 2, norm=cfg.norm)
+            for cin, cout in zip(cfg.encoder_input_sizes,
+                                 cfg.encoder_output_sizes))
+        self.resblocks = cfg.resblocks()
+        self.decoders = cfg.decoders()
+        self.pred = ConvLayer(cfg.skip_width * cfg.base_num_channels, 3, 1,
+                              activation=None)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        head = x = self.head(x)
+        blocks = []
+        for enc in self.encoders:
+            x = enc(x)
+            blocks.append(x)
+        for rb in self.resblocks:
+            x = rb(x)
+        x = _decode(self.cfg, self.decoders, x, blocks)
+        img_flow = self.pred(self.cfg.skip(x, head))
+        return {"image": img_flow[:, 0:1], "flow": img_flow[:, 1:3]}
 
 
 class UNet(nn.Module):
@@ -174,16 +284,10 @@ class UNet(nn.Module):
             for cin, cout in zip([cfg.num_bins]
                                  + cfg.encoder_output_sizes[:-1],
                                  cfg.encoder_output_sizes))
-        self.resblocks = nn.ModuleList(
-            ResidualBlock(cfg.max_num_channels, cfg.max_num_channels,
-                          cfg.norm)
-            for _ in range(cfg.num_residual_blocks))
-        self.decoders = nn.ModuleList(
-            UpsampleConvLayer(cin, cout, k, norm=cfg.norm)
-            for cin, cout in zip(cfg.decoder_input_sizes,
-                                 reversed(cfg.encoder_input_sizes)))
+        self.resblocks = cfg.resblocks()
+        self.decoders = cfg.decoders()
         self.pred = ConvLayer(cfg.base_num_channels, cfg.num_output_channels,
-                              1, activation=None, norm=cfg.norm)
+                              1, activation=None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         blocks = []
@@ -192,18 +296,17 @@ class UNet(nn.Module):
             blocks.append(x)
         for rb in self.resblocks:
             x = rb(x)
-        n = self.cfg.num_encoders
-        for i, dec in enumerate(self.decoders):
-            x = dec(self.cfg.skip(x, blocks[n - i - 1]))
-        return self.pred(x)
+        return self.pred(_decode(self.cfg, self.decoders, x, blocks))
 
 
 def _encoder_states(cfg: UNetConfig, batch: int, height: int, width: int,
-                    dtype=torch.float32, device=None) -> List[LSTMState]:
+                    dtype=torch.float32, device=None) -> List[Any]:
+    """The zero state of each recurrent encoder: (h, c) for convlstm, h
+    for convgru, at 1/2, 1/4, ... of the input's size."""
     states = []
     h, w = height, width
     for features in cfg.encoder_output_sizes:
         h, w = h // 2, w // 2
-        z = torch.zeros((batch, features, h, w), dtype=dtype, device=device)
-        states.append((z, z))
+        states.append(zero_cell_state(cfg.recurrent_block_type, batch, h, w,
+                                      features, dtype, device))
     return states

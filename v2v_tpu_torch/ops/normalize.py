@@ -1,9 +1,11 @@
-"""Event visualization normalization (port of
-v2v_tpu/ops/normalize.py::normalize_nobias; reference
-model/train_utils.py:128-135), in numpy for the host-side previews."""
+"""Voxel normalizations (port of v2v_tpu/ops/normalize.py): the event
+visualization's normalize_nobias (reference model/train_utils.py:
+128-135), in numpy for the host-side previews, and the train and eval
+forward's normalize_batch_voxel, in torch."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _kth_smallest(flat: np.ndarray, k: int) -> np.ndarray:
@@ -22,3 +24,22 @@ def normalize_nobias(x: np.ndarray) -> np.ndarray:
     x = np.clip(x, -neg_max, pos_max)
     x = np.where(x > 0, x / pos_max, x / neg_max)
     return x / 2 + 0.5
+
+
+def normalize_batch_voxel(voxel: torch.Tensor) -> torch.Tensor:
+    """Per-sample robust normalization of a (B,T,H,W,C) (or (B,T,C,H,W))
+    voxel batch (v2v_tpu/ops/normalize.py::normalize_batch_voxel;
+    reference model/train_utils.py:147-166): the positive values divided
+    by the sample's 99th percentile, the others by minus its 1st, each
+    clamped to >= 1. The percentiles are the sorted values at
+    int(0.99*n)-1 and int(0.01*n)-1, as the JAX function indexes them,
+    so the result is the same bits."""
+    if voxel.ndim != 5:
+        raise ValueError(f"normalize_batch_voxel wants 5 dims, got "
+                         f"{tuple(voxel.shape)}")
+    b = voxel.shape[0]
+    srt = torch.sort(voxel.reshape(b, -1), dim=1).values
+    n = srt.shape[1]
+    pos_max = srt[:, int(0.99 * n) - 1].clamp_min(1.0).view(b, 1, 1, 1, 1)
+    neg_max = (-srt[:, int(0.01 * n) - 1]).clamp_min(1.0).view(b, 1, 1, 1, 1)
+    return torch.where(voxel > 0, voxel / pos_max, voxel / neg_max)

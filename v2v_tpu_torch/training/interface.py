@@ -1,5 +1,6 @@
-"""Task interface: sequence forward + loss for E2VID, ETNet and
-HyperE2VID (port of v2v_tpu/training/interface.py::ModelInterface).
+"""Task interface: sequence forward + loss for the reconstruction
+models (E2VID and the rest of the UNet zoo, FireNet, ETNet, HyperE2VID;
+port of v2v_tpu/training/interface.py::ModelInterface).
 
 Batch layout at this interface is the JAX package's channels-last one:
 events (B,T,H,W,bins), frame (B,T,H,W,1), flow (B,T,H,W,2). The model
@@ -29,6 +30,7 @@ from ..losses import losses as L
 from ..losses.lpips import LPIPS
 from ..models.eitr import EITR
 from ..models.init import materialize
+from ..ops.normalize import normalize_batch_voxel
 from ..ops.pad import crop_from_multiple, pad_to_multiple
 
 
@@ -38,6 +40,7 @@ class LossConfig(NamedTuple):
     lpips_type: str = "vgg"
     lpips_remat: str = "full"
     l1_weight: float = 0.0
+    l2_weight: float = 0.0
     temporal_consistency_weight: float = 0.0
     temporal_consistency_L0: int = 1
     optical_flow_source: str = "gt"   # gt | zeros | raft_small | raft_large
@@ -48,10 +51,10 @@ class LossConfig(NamedTuple):
         if d.get("lpips_remat", "full") not in ("full", "none"):
             raise ValueError(f"lpips_remat must be 'full' or 'none', got "
                              f"{d['lpips_remat']!r}")
-        for unported in ("ssim_weight", "l2_weight"):
-            if d.get(unported, 0):
-                raise ValueError(f"{unported} != 0 is not supported by the "
-                                 f"port")
+        if d.get("ssim_weight", 0):
+            # disabled in the reference too (model/loss.py:149-157)
+            raise ValueError("ssim_weight != 0 is unsupported, as in the "
+                             "reference; set it to 0")
         return cls(**{k: v for k, v in d.items() if k in cls._fields})
 
 
@@ -80,14 +83,14 @@ class ModelInterface:
             lambda: instantiate_from_config(configs["model"]), self.device,
             generator)
         self.loss_cfg = LossConfig.from_dict(configs.get("loss", {}))
-        if configs.get("normalize_voxels", False):
-            raise NotImplementedError("normalize_voxels is not ported yet")
+        self.normalize_voxels = configs.get("normalize_voxels", False)
         self.compute_dtype = _DTYPES[configs.get("compute_dtype", None)]
-        # the split forward batches the tail over B*T, which would change
-        # the live statistics of a BatchNorm model in training
+        # the split and batched forwards run over B*T at once, which would
+        # change the live statistics of a norm with running statistics
+        # (BatchNorm, TorchInstanceNorm) in training
         self.scan_split = configs.get("scan_split", True) and not any(
-            isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
-            for m in self.model.modules())
+            isinstance(m, torch.nn.modules.batchnorm._NormBase)
+            and m.track_running_stats for m in self.model.modules())
         # the HyperE2VID GT-mixing curriculum: beta = 1 - epoch/hyper_epochs
         self.hyper_epochs = configs.get("hyper_epochs", 0)
         # the pseudo-GT teacher's dtype (v2v_tpu raft_flow's default)
@@ -156,16 +159,23 @@ class ModelInterface:
                          hyper_beta: Optional[float] = None,
                          generator: Optional[torch.Generator] = None
                          ) -> Tuple[torch.Tensor, Any]:
-        """events (B,T,H,W,bins) -> (pred (B,T,H,W,1) float32, final
-        state). Training runs the split forward, unless the model has
-        BatchNorms or the HyperE2VID curriculum is on (`gt_frames`
-        (B,T,H,W,1) and `hyper_beta` given: its prediction feeds back);
-        otherwise one model step per time step. The model is in training
-        mode only when `train`. `generator` draws ETNet's dropout masks:
-        the split forward's tail takes them in one draw over B*T (as the
-        JAX package's one dropout key does), the per-step path a draw a
-        time step; a model without dropout ignores it."""
+        """events (B,T,H,W,bins) -> (pred (B,T,H,W,C) float32, final
+        state); the model's "image" output, any "flow" output is dropped.
+        With `normalize_voxels` the events are normalized first
+        (normalize_batch_voxel). In training, unless the model has norms
+        with running statistics or the HyperE2VID curriculum is on
+        (`gt_frames` (B,T,H,W,1) and `hyper_beta` given: its prediction
+        feeds back), a model with the split entry points runs the split
+        forward and a model with no state (`state == ()`) one call over
+        B*T; otherwise one model step per time step. The model is in
+        training mode only when `train`. `generator` draws ETNet's
+        dropout masks: the split forward's tail takes them in one draw
+        over B*T (as the JAX package's one dropout key does), the
+        per-step path a draw a time step; a model without dropout
+        ignores it."""
         self.model.train(train)
+        if self.normalize_voxels:
+            events = normalize_batch_voxel(events)
         events, hw = pad_to_multiple(events, 16)
         use_hyper = gt_frames is not None and hyper_beta is not None
         if use_hyper:
@@ -175,8 +185,15 @@ class ModelInterface:
             gt_frames = gt_frames.to(self.compute_dtype)
         call = self._caller(train)
         kw = {"generator": generator} if isinstance(self.model, EITR) else {}
-        if train and self.scan_split and not use_hyper:
+        batched = train and self.scan_split and not use_hyper
+        if batched and hasattr(self.model, "spine_step"):
             imgs, state = self._forward_split(call, events, state, kw)
+        elif batched and isinstance(state, tuple) and not state:
+            b, t = events.shape[:2]
+            flat = events.reshape(b * t, *events.shape[2:])
+            out, _ = call(flat.permute(0, 3, 1, 2), state, method="step")
+            img = out["image"]
+            imgs = img.reshape(b, t, *img.shape[1:]).permute(0, 1, 3, 4, 2)
         else:
             outs = []
             for i in range(events.shape[1]):
@@ -256,6 +273,11 @@ class ModelInterface:
                                frames.reshape(b * t, *frames.shape[2:]),
                                cfg.l1_weight, reduce_batch=False)
             terms["l1_loss"] = per_bt.reshape(b, t).mean(dim=1)
+        if cfg.l2_weight:
+            per_bt = L.l2_loss(pred.reshape(b * t, *pred.shape[2:]),
+                               frames.reshape(b * t, *frames.shape[2:]),
+                               cfg.l2_weight, reduce_batch=False)
+            terms["l2_loss"] = per_bt.reshape(b, t).mean(dim=1)
         if cfg.lpips_weight:
             terms["perceptual_loss"] = cfg.lpips_weight * self._lpips_term(
                 pred, frames)
