@@ -103,6 +103,23 @@ Phases, one line each, any failure exits non-zero:
      sequences of 10 frames against RAFT-large pseudo-GT and two 260x346
      ones with stored flow ([eraft-eval]: T-1 flows, finite metrics, a
      reset a sequence)
+ 14c. NerNet: test_nernet_original.yaml's model at full width on two
+     raw-event sequences of 3 frames at 64x80, forward_sequence_nernet on
+     the card against the CPU, float32, TF32 off, and the scatter's sums
+     equal bit for bit on both ([nernet-reference]); the same model
+     through run_test on two synthetic EVAID 720x1280 raw-event
+     sequences of 8 frames (cut from 80), 400,000 events a frame stamped
+     in absolute seconds ([nernet-eval]: ms/frame, the voxelization's
+     share of a frame, peak memory, finite metrics, a reset a sequence,
+     one frame twice from one state in equal bits, no kernel of the port
+     launched)
+ 14d. the ESIM ablation: a float32 step of its module (the flagship's)
+     on two stand-in ESIM items of 4 steps at 64x64, pre-voxelized, card
+     against CPU ([esim-reference]); configs/train_ablation_e2vid_esim.
+     yaml (B=12, T=40, crop 128, full-width E2VID, bf16) through main as
+     in 7b on seeded stand-in windows through the port's ESIMTransform
+     (no h5py there) ([esim-train]: K1 0 launches, the data comes
+     voxelized)
  15. the K5 experiment: v2v_tpu_torch/scripts/exp_sim_interleave.py at
      its full workload (12 clips of 201 uint8 frames at 128x128, spp 1,
      2 and 4, 50 chained launches a run); K5's launch count must equal
@@ -354,6 +371,55 @@ E2VIDPP_CONFIG = dict(ETNET_CONFIG, experiment_name="e2vid++_original",
                       test_output_dir="results/e2vid++_original",
                       module=dict(ETNET_CONFIG["module"],
                                   model=E2VIDPP_MODEL))
+# configs/test_nernet_original.yaml: NerNet (a learned voxelizer on raw
+# events, a NIAM ST-cell UNet with GCB attention); configs/
+# train_ablation_e2vid_esim.yaml: the flagship's module on ESIM's
+# pre-voxelized caches. tests/test_torch_nernet.py and test_torch_esim.py
+# hold them equal to the YAMLs
+NERNET_CONFIG = {
+    "experiment_name": "nernet_original",
+    "test_output_dir": "results/nernet_original",
+    "module": {
+        "loss": dict(ETNET_CONFIG["module"]["loss"]),
+        "normalize_voxels": False,
+        "model": {"target": "model.nernet_model.RepresentationRecurrent",
+                  "params": {"unet_kwargs": {
+                      "num_bins": 5, "skip_type": "sum",
+                      "recurrent_network": "NIAM_STcell_GCB",
+                      "recurrent_block_type": "", "num_encoders": 3,
+                      "base_num_channels": 32, "num_residual_blocks": 2,
+                      "use_upsample_conv": True, "norm": "",
+                      "crop_size": 224, "mlp_layers": [1, 50, 50, 50, 1],
+                      "use_cnn_representation": True, "normalize": False,
+                      "combine_voxel": False, "RepCNN_kernel_size": 3,
+                      "RepCNN_padding": 1, "RepCNN_channel": 64,
+                      "RepCNN_num_layers": 1, "num_output_channels": 1}}},
+        "is_nernet": True},
+    "test_stage": {
+        "test_batch_size": 1,
+        "test_num_workers": 0,
+        "test": [dict(_ETNET_SET, class_name="data.testh5.TestH5EventDataset",
+                      data_file=f"configs/{name}_test.txt",
+                      dataset_name=name)
+                 for name in ("evaid", "ijrr", "hqf", "mvsec")]},
+}
+NERNET_PARAMS = 19_364_754
+ESIM_TRAIN_MODULE = FLAGSHIP_MODULE
+ESIM_TRAIN_STAGE = dict(FLAGSHIP_STAGE, dataset=dict(
+    FLAGSHIP_STAGE["dataset"],
+    train=[{"data_file": "configs/esim_h5.txt",
+            "class_name": "data.esim_dataset.ESIMH5Dataset",
+            "data_source_name": "esim", "sequence_length": 40,
+            "proba_pause_when_running": 0.05,
+            "proba_pause_when_paused": 0.9, "noise_std": 0.1,
+            "noise_fraction": 1.0, "hot_pixel_std": 0.1,
+            "max_hot_pixel_fraction": 0.001, "random_crop_size": 128,
+            "random_flip": True}],
+    val=[dict(v, interpolate_bins=True)
+         for v in FLAGSHIP_STAGE["dataset"]["val"]]))
+# the stand-in ESIM caches' frame size (a DAVIS240 sensor's 240x180),
+# which the config's 128 crop cuts
+ESIM_HW = (180, 240)
 # [zoo-train]: the flagship train config with its model swapped in memory
 # (no such YAML in configs/) for E2VID++ (the split forward through
 # UNetFlow's tail), FireNet at its published defaults (the per-step loop,
@@ -464,6 +530,10 @@ K3_ATOL = 1e-5
 # full-width ETNet or HyperE2VID in float32 with TF32 off, over 3
 # recurrent steps
 EVAL_REF_ATOL = 1e-4
+# card against CPU on NerNet's learned voxel at 64x80: float32 MLP rows
+# (|voxel| ~0.2 on random weights) summed a few a pixel in the same
+# order, the MLP's products in another
+NERNET_VOXEL_ATOL = 1e-5
 
 # K1's flagship shape (B, N, H, W), the off-multiple crop it is also
 # held at, and a ragged shape (H*W odd, N-1 not a multiple of 4); the
@@ -1241,10 +1311,12 @@ def _tiny_module(l0: int, module=None):
 
 
 def phase_reference(torch, dev, seed, module=None, tag="reference",
-                    hyper_beta=None):
+                    hyper_beta=None, batch=None):
     """One float32 train step of a slice (its loss, a tiny model, 64 px)
     on the card against the same step on the CPU, same weights and
-    voxels: the CPU path is the one the tier-1 tests hold against JAX.
+    voxels (simulated from video, or `batch`'s events, frames and flow
+    as a pre-voxelized train set gives them): the CPU path is the one the
+    tier-1 tests hold against JAX.
     With `hyper_beta` the HyperE2VID curriculum runs, K4 and its gradient
     must launch once a time step each on the card. Running statistics
     (BatchNorm, InstanceNorm; in the state_dict) must agree too, and
@@ -1260,9 +1332,11 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
     cpu = torch.device("cpu")
     lr, t = 1e-4, 4
     mod = _tiny_module(l0=2, module=module)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    video = _drifting_video(2, t * 5 + 1, 64, 64, seed, dev)
-    events, frame = synthesize_batch(video, g, SimConfig(), 5, 1)
+    if batch is None:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        video = _drifting_video(2, t * 5 + 1, 64, 64, seed, dev)
+        events, frame = synthesize_batch(video, g, SimConfig(), 5, 1)
+        batch = {"events": events, "frame": frame}
     kw = {} if hyper_beta is None else {"hyper_beta": hyper_beta}
     runs = []
     lp = LPIPS("vgg", cpu)
@@ -1281,7 +1355,7 @@ def phase_reference(torch, dev, seed, module=None, tag="reference",
         opt = Adam(lr=lr, amsgrad=True).make(iface.model.parameters())
         step = make_train_step(iface, opt)
         _zero_launches()
-        loss, aux = step({"events": events.to(d), "frame": frame.to(d)}, **kw)
+        loss, aux = step({k: v.to(d) for k, v in batch.items()}, **kw)
         runs.append((float(loss), float(aux["grad_norm"]),
                      {k: v.detach().to(cpu)
                       for k, v in iface.model.state_dict().items()},
@@ -1329,7 +1403,7 @@ def phase_zoo_reference(torch, dev, seed):
 def _profile(torch, tag, fn):
     """fn() once more under torch.profiler: the GPU span of each v2v.*
     range, kernel busy time against the wall clock, and the kernels that
-    take the most device time."""
+    take the most device time. Returns (wall ms, busy ms, {span: ms})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1365,6 +1439,7 @@ def _profile(torch, tag, fn):
         _log(f"[{tag}] the port's kernels: " + ", ".join(
             f"{kernel_name(e.key)} {dev_ms(e):.4f} ms x{e.count}"
             for e in own))
+    return wall_ms, busy, spans
 
 
 def phase_slice(torch, dev, seed, steps, profile=False, module=None,
@@ -1514,6 +1589,41 @@ class _DriftingClips:
                 "video": np.clip(frames, 0, 255).round().astype(np.uint8)}
 
 
+class _ESIMStandIn:
+    """A seeded stand-in for an ESIM cache set, in ESIMH5Dataset's item
+    contract: a window of sequence_length frames of the cache's layout
+    (frames (T,1,H,W) in [0, 1], flow (T,2,H,W), voxels (T,5,H,W) of
+    signed event counts at `hw`) through the port's ESIMTransform
+    (crop, flip, pause chain, noise; its draws from the global `random`
+    and `np.random` streams, as the dataset's). One base window is made
+    in numpy from `seed`; item `idx` is it rolled by idx frames. It
+    stands in for the h5 caches, which the card's machine cannot read (no
+    h5py)."""
+
+    def __init__(self, data_cfg, seed, n_items, hw=ESIM_HW):
+        import numpy as np
+        from v2v_tpu_torch.data.esim import ESIMTransform
+        self.transform = ESIMTransform(data_cfg)
+        self.n_items = n_items
+        t = data_cfg["sequence_length"]
+        h, w = hw
+        rng = np.random.default_rng(seed)
+        tex = rng.random((h, w + t))
+        self.frames = np.stack([tex[None, :, i:i + w] for i in range(t)])
+        self.flow = np.zeros((t, 2, h, w), np.float32)
+        self.flow[:, 0] = -1.0
+        self.voxels = (rng.integers(-2, 3, (t, 5, h, w))
+                       * (rng.random((t, 5, h, w)) < 0.1)).astype(np.float32)
+
+    def __len__(self):
+        return self.n_items
+
+    def __getitem__(self, idx):
+        import numpy as np
+        return self.transform(*(np.roll(a, idx, axis=0) for a in (
+            self.frames, self.flow, self.voxels)))
+
+
 class _Tee:
     """A stream that writes to each of `streams`."""
 
@@ -1545,15 +1655,17 @@ def _checkpoint_bound(torch, model, optimizer):
 
 
 def phase_driver(torch, dev, seed, slice_ms=None, module=None, stage=None,
-                 tag="driver", task="e2vid"):
+                 tag="driver", task="e2vid", stand_in=None, k1_per_step=1):
     """A train config (default the flagship: full width, random LPIPS-VGG
     trunk and RAFT-small teacher, bf16) through the port's train driver,
     training/train.py::main, rooted in a temp dir: DRIVER_EPOCHS epochs
-    of DRIVER_BATCHES batches on _DriftingClips, each validated on two
+    of DRIVER_BATCHES batches on `stand_in` (default _DriftingClips;
+    _ESIMStandIn for a pre-voxelized set), each validated on two
     synthetic 128x128 sequences of the val config's length (for the flow
     `task` the second with a stored flow, which the teacher's replaces)
     and checkpointed; then one more epoch, resumed from the last checkpoint
-    with the optimizer state. K1 must launch once a driver step; the
+    with the optimizer state. K1 must launch `k1_per_step` times a
+    driver step (0 where the data comes voxelized); the
     ckpt_paths file, val_loss.txt, the losses, each epoch's lr (the
     config's base lr times its scheduler's multiplier), the optimizer's
     step count after the resume, load_params_only of the last checkpoint,
@@ -1580,9 +1692,10 @@ def phase_driver(torch, dev, seed, slice_ms=None, module=None, stage=None,
            "module": copy.deepcopy(module or FLAGSHIP_MODULE),
            "train_stages": [stage]}
     data_cfg = stage["dataset"]["train"][0]
-    hw = data_cfg["crop_size"]
+    hw = data_cfg.get("crop_size") or data_cfg["random_crop_size"]
     batch = stage["dataset"]["train_batch_size"]
-    train_ds = _DriftingClips(data_cfg, seed, DRIVER_BATCHES * batch)
+    train_ds = (stand_in or _DriftingClips)(data_cfg, seed,
+                                            DRIVER_BATCHES * batch)
     val_cfg = stage["dataset"]["val"][0]              # evaid, image_range 1
     val_ds = ConcatDataset([
         _SyntheticSequence(f"val{i}", seed + 30 + i,
@@ -1618,9 +1731,9 @@ def phase_driver(torch, dev, seed, slice_ms=None, module=None, stage=None,
         launches = _read_launches()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         steps = DRIVER_BATCHES * (DRIVER_EPOCHS + 1)
-        _require(launches["simulate_batch"] == steps,
+        _require(launches["simulate_batch"] == k1_per_step * steps,
                  f"{tag}: K1 launched {launches['simulate_batch']} times in "
-                 f"{steps} driver steps")
+                 f"{steps} driver steps, want {k1_per_step} a step")
         paths = all_ckpt_paths(exp, root)
         _require(len(paths) == DRIVER_EPOCHS + 1 and paths[-1].endswith(
             f"epoch_{DRIVER_EPOCHS:04d}.pth"),
@@ -2013,6 +2126,52 @@ class _SyntheticSequence:
         return item
 
 
+class _SyntheticEventSequence:
+    """One sequence of `frames` frames held in memory, in the sample
+    contract of TestH5EventDataset (frame (T,H,W,1) in [0,255], events a
+    list of T float64 (N,5) arrays [x, y, t, 2p-1, 0]): a drifting
+    texture as GT and `events_per_frame` uniform random events a frame,
+    stamped in absolute seconds (from 1.6e9, 30 frames a second, as raw h5
+    captures are), from numpy with `seed`. It stands in for an h5 file:
+    the card's machine has no h5py."""
+
+    def __init__(self, name, seed, frames, hw, events_per_frame, data_cfg):
+        self.name, self.seed, self.frames, self.hw = name, seed, frames, hw
+        self.events_per_frame = events_per_frame
+        self.data_cfg = data_cfg
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, idx):
+        import numpy as np
+        from v2v_tpu_torch.data.sources import DATA_SOURCES
+        rng = np.random.default_rng(self.seed)
+        h, w = self.hw
+        cell = 16
+        coarse = rng.random((h // cell + 2, w // cell + 2)) * 255.0
+        texture = np.kron(coarse, np.ones((cell, cell)))
+        frames, events = [], []
+        n = self.events_per_frame
+        for t in range(self.frames):
+            dy, dx = t % cell, (2 * t) % cell
+            frames.append(texture[dy:dy + h, dx:dx + w])
+            events.append(np.stack([
+                rng.integers(0, w, n).astype(np.float64),
+                rng.integers(0, h, n).astype(np.float64),
+                1.6e9 + np.sort(rng.uniform(t / 30.0, (t + 1) / 30.0, n)),
+                rng.integers(0, 2, n) * 2.0 - 1.0, np.zeros(n)], axis=1))
+        return {
+            "frame": np.stack(frames)[..., None].astype(np.float32),
+            "events": events,
+            "data_source_idx": np.int64(DATA_SOURCES.index(
+                self.data_cfg["dataset_name"])),
+            "sequence_name": self.name,
+            "real_begin_idx": np.zeros((self.frames,), np.int64),
+            "frame_idx": np.arange(self.frames, dtype=np.int64),
+        }
+
+
 def phase_eval_reference(torch, dev, seed, module=None, kernel="attention",
                          per_frame=K3_PER_FRAME, tag="eval-reference"):
     """The eval step of a full-width model (default ETNet, whose caller
@@ -2175,6 +2334,220 @@ def phase_eval(torch, dev, seed, profile=False, config=None,
     if profile:
         _profile(torch, f"{tag}-profile", lambda: eval_step(first, state))
     return launches, final
+
+
+def phase_nernet_reference(torch, dev, seed):
+    """[nernet-reference]: test_nernet_original.yaml's NerNet at full
+    width on two sequences of 3 frames at 64x80 (2,000 events a frame,
+    near EVAID's density), through forward_sequence_nernet on the card
+    against the CPU, same weights and events, float32, TF32 off: the
+    predictions within EVAL_REF_ATOL and the first frame's voxel within
+    NERNET_VOXEL_ATOL. The scatter (scatter_rows) sums each pixel's rows
+    in event order on both, so on the same keys and rows the card's sums
+    equal the CPU's bit for bit."""
+    from v2v_tpu_torch.models.nernet import scatter_rows
+    from v2v_tpu_torch.training.interface import ModelInterface
+    tag = "nernet-reference"
+    _tf32(torch, False)
+    cpu = torch.device("cpu")
+    frames, hw = 3, (64, 80)
+    module = dict(NERNET_CONFIG["module"], loss={})
+    seqs = [_SyntheticEventSequence(
+        f"reference{i}", seed + 40 + i, frames, hw, 2000,
+        NERNET_CONFIG["test_stage"]["test"][0])[0] for i in range(2)]
+    runs, weights = [], None
+    for d in (dev, cpu):
+        iface = ModelInterface(
+            module, d, generator=torch.Generator(device=d).manual_seed(seed))
+        if weights is None:
+            weights = {k: v.to(cpu)
+                       for k, v in iface.model.state_dict().items()}
+        else:
+            iface.model.load_state_dict(weights)
+        _zero_launches()
+        preds = [iface.forward_sequence_nernet(
+            sq["events"], iface.init_state(1, *hw))[0].to(cpu)
+            for sq in seqs]
+        first = seqs[0]["events"][0].copy()
+        first[:, 2] -= first[0, 2]
+        with torch.no_grad():
+            vox = iface.model.representation(
+                torch.as_tensor(first, dtype=torch.float32, device=d), *hw)
+        runs.append((torch.cat(preds), vox.to(cpu), _read_launches()))
+    (pc, vxc, lc), (ph, vxh, lh) = runs
+    err, verr = float((pc - ph).abs().max()), float((vxc - vxh).abs().max())
+    g = torch.Generator().manual_seed(seed)
+    n_pix = 2 * hw[0] * hw[1]
+    pix = torch.randint(0, n_pix, (2000,), generator=g)
+    rows = torch.randn(2000, 5, generator=g)
+    scatter_cpu = scatter_rows(pix, rows, n_pix)
+    scatter_dev = scatter_rows(pix.to(dev), rows.to(dev), n_pix).to(cpu)
+    same = torch.equal(scatter_cpu, scatter_dev)
+    _log(f"[{tag}] {type(iface.model).__name__} {hw[0]}x{hw[1]}, "
+         f"{len(seqs)} sequences x {frames} frames, 2000 events a frame: "
+         f"max|pred cuda - pred cpu| {err:.3e} (tolerance {EVAL_REF_ATOL}); "
+         f"voxel {verr:.3e} (tolerance {NERNET_VOXEL_ATOL}; |voxel| up to "
+         f"{float(vxh.abs().max()):.3f}); scatter_rows on the same keys and "
+         f"rows equal on card and CPU: {same}; launches on the card "
+         f"{sum(lc.values())}")
+    _require(bool(torch.isfinite(pc).all()), f"{tag}: non-finite")
+    _require(float(vxh.abs().max()) > 0, f"{tag}: an empty voxel")
+    _require(err <= EVAL_REF_ATOL, f"{tag}: card and CPU differ")
+    _require(verr <= NERNET_VOXEL_ATOL, f"{tag}: the voxels differ")
+    _require(same, f"{tag}: the scatter's bits differ between card and CPU")
+    _require(not any(lc.values()) and not any(lh.values()),
+             f"{tag}: kernels launched {lc}")
+    _tf32(torch, True)
+
+
+def phase_nernet_eval(torch, dev, seed, profile=False):
+    """[nernet-eval]: configs/test_nernet_original.yaml's NerNet at full
+    width through the port's run_test on two synthetic EVAID 720x1280
+    raw-event sequences of EVAL_FRAMES frames, EVAL_EVENTS_PER_FRAME
+    events a frame stamped in absolute seconds, random weights and
+    LPIPS-Alex trunk. Timed a frame (synchronized), the voxelization's
+    part (ValueLayer and the scatter, CUDA events) beside it; no kernel of
+    the port launches; finite predictions and metrics; the state reset at
+    the second sequence; one frame run twice from one state gives equal
+    bits."""
+    from torch.profiler import record_function
+    from v2v_tpu_torch.data.interface import ConcatDataset
+    from v2v_tpu_torch.eval import harness
+    from v2v_tpu_torch.losses.lpips import LPIPS
+    from v2v_tpu_torch.training.interface import ModelInterface
+    tag = "nernet-eval"
+    cfg = json.loads(json.dumps(NERNET_CONFIG))
+    cfg.pop("test_output_dir")     # PNG output needs cv2, absent here
+    data_cfg = cfg["test_stage"]["test"][0]          # evaid
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = LPIPS("alex", dev, generator=g)
+    iface = ModelInterface(cfg["module"], dev, generator=g, lpips=lp,
+                           lpips_test=lp)
+    model = iface.model
+    n_params = sum(p.numel() for p in model.parameters())
+    _require(n_params == NERNET_PARAMS,
+             f"{tag}: the model has {n_params} parameters")
+    seqs = [_SyntheticEventSequence(f"synthetic{i}", seed + 20 + i,
+                                    EVAL_FRAMES, EVAL_HW,
+                                    EVAL_EVENTS_PER_FRAME, data_cfg)
+            for i in range(2)]
+    quant = model.representation.quantization_layer
+    times, vox_ms, outs, pending = [], [], [], []
+
+    def timed_quant(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with record_function("v2v.voxelize"):
+            vox = type(quant).forward(quant, *args, **kw)
+        ev[1].record()
+        pending.append(ev)
+        return vox
+
+    def timed_forward(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, state = type(model).forward(model, *args, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vox_ms.append(pending[-1][0].elapsed_time(pending[-1][1]))
+        outs.append(out["image"].detach().clone())
+        return out, state
+
+    model.forward, quant.forward = timed_forward, timed_quant
+    _log(f"[{tag}] {type(model).__name__} {n_params} params at "
+         f"{EVAL_HW[0]}x{EVAL_HW[1]}, 2 sequences x {EVAL_FRAMES} frames, "
+         f"{EVAL_EVENTS_PER_FRAME} raw events a frame, random weights and "
+         f"LPIPS-Alex trunk")
+    root = tempfile.mkdtemp(prefix="chip_smoke_nernet_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        final = harness.run_test(iface, cfg, root=root,
+                                 dataset=ConcatDataset(seqs))
+    finally:
+        del model.forward, quant.forward
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    n_frames = 2 * EVAL_FRAMES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require(not any(launches.values()), f"{tag}: kernels launched "
+                                         f"{launches}")
+    _require(len(outs) == n_frames, f"{tag}: {len(outs)} model steps")
+    _require(all(o.shape == (1, 1) + EVAL_HW for o in outs),
+             f"{tag}: prediction shapes {outs[0].shape}")
+    _require(all(bool(torch.isfinite(o).all()) for o in outs),
+             f"{tag}: non-finite pred")
+    # the harness reset the state at the second sequence: its first frame
+    # equals a run from a fresh state; that frame again from the same
+    # state gives the same bits (the scatter's fixed order)
+    first = seqs[1][0]["events"][:1]
+    fresh = [iface.forward_sequence_nernet(
+        first, iface.init_state(1, *EVAL_HW)) for _ in range(2)]
+    reset_err = float((fresh[0][0][0, 0, ..., 0]
+                       - outs[EVAL_FRAMES][0, 0]).abs().max())
+    repeat = torch.equal(fresh[0][0], fresh[1][0])
+    carried, _ = iface.forward_sequence_nernet(first, fresh[0][1])
+    carried_diff = float((carried - fresh[0][0]).abs().max())
+    _log(f"[{tag}] model output range [{min(float(o.min()) for o in outs):.4f}"
+         f", {max(float(o.max()) for o in outs):.4f}]; sequence 2, frame 1: "
+         f"max|harness - fresh state| {reset_err:.3e}, the same frame again "
+         f"equal bits: {repeat}; on a carried state it differs by "
+         f"{carried_diff:.3e}")
+    _require(reset_err <= 1e-5, f"{tag}: the state was not reset")
+    _require(repeat, f"{tag}: a frame run twice gave other bits")
+    _require(carried_diff > 0, f"{tag}: the state does not carry")
+    with open(os.path.join(root, "tensorboard_logs",
+                           cfg["experiment_name"], "test_metrics.txt")) as f:
+        metrics = {k: float(v) for k, v in
+                   (line.rsplit(": ", 1) for line in f if line.strip())}
+    _require(len(metrics) == 6 and all(math.isfinite(v)
+                                       for v in metrics.values()),
+             f"{tag}: test_metrics.txt holds {metrics}")
+    _log(f"[{tag}] test_metrics.txt: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in sorted(metrics.items())))
+    ms = statistics.median(times[1:])
+    vms = statistics.median(vox_ms[1:])
+    _log(f"[{tag}] ms/frame after the first: {ms:.1f} (min "
+         f"{min(times[1:]):.1f}, max {max(times[1:]):.1f}, first "
+         f"{times[0]:.1f}); the voxelization (ValueLayer + scatter) "
+         f"{vms:.2f} ms a frame, {vms / ms:.3f} of it; run_test {wall:.1f} "
+         f"s for {n_frames} frames; max_memory_allocated {peak:.2f} GiB; "
+         f"launches {launches}")
+    if profile:
+        quant.forward = timed_quant
+        try:
+            wall_ms, busy, spans = _profile(
+                torch, f"{tag}-profile",
+                lambda: iface.forward_sequence_nernet(first, fresh[0][1]))
+        finally:
+            del quant.forward
+        vox = spans.get("v2v.voxelize", 0.0)
+        _log(f"[{tag}-profile] the voxelization's GPU span {vox:.2f} ms: "
+             f"{vox / busy:.3f} of the busy time, {vox / wall_ms:.3f} of "
+             f"the wall")
+    return launches, final
+
+
+def phase_esim_reference(torch, dev, seed):
+    """[esim-reference]: phase_reference on the ESIM config's module (the
+    flagship's, cut to width 4, float32, L0 2) with a batch of two
+    stand-in ESIM items of 4 time steps at 64x64: their events come
+    voxelized, their stored flow is replaced by the teacher's; the
+    tolerances of [zoo-reference]."""
+    import random
+    import numpy as np
+    from v2v_tpu_torch.data.interface import collate
+    data_cfg = dict(ESIM_TRAIN_STAGE["dataset"]["train"][0],
+                    sequence_length=4, random_crop_size=64)
+    items = _ESIMStandIn(data_cfg, seed, 2)
+    random.seed(seed)
+    np.random.seed(seed)
+    b = collate([items[i] for i in range(2)])
+    batch = {k: torch.from_numpy(b[k]) for k in ("events", "frame", "flow")}
+    phase_reference(torch, dev, seed, ESIM_TRAIN_MODULE, "esim-reference",
+                    batch=batch)
 
 
 def phase_flow_reference(torch, dev, seed):
@@ -2593,6 +2966,14 @@ def main(argv=None) -> int:
         phase_flow_eval(torch, dev, args.seed, args.profile,
                         ERAFT_TEST_CONFIG, _eraft_eval_sequences(args.seed),
                         ERAFT_EVAL_PARAMS, "eraft-eval")
+        phase_nernet_reference(torch, dev, args.seed)
+        paths["nernet-eval"], _ = phase_nernet_eval(torch, dev, args.seed,
+                                                    args.profile)
+        phase_esim_reference(torch, dev, args.seed)
+        paths["esim-train"], _ = phase_driver(
+            torch, dev, args.seed, module=ESIM_TRAIN_MODULE,
+            stage=ESIM_TRAIN_STAGE, tag="esim-train", stand_in=_ESIMStandIn,
+            k1_per_step=0)
         paths["sim-interleave"] = phase_sim_interleave(torch, dev)
     except Exception as e:   # every phase failure ends the run non-zero
         import traceback

@@ -24,6 +24,8 @@ TARGET_ALIASES: Dict[str, str] = {
     "model.eitr.eitr.EITR": "v2v_tpu_torch.models.eitr.EITR",
     "model.hyper_model.HyperE2VID": "v2v_tpu_torch.models.hyper.HyperE2VID",
     "model.eraft.eraft.ERAFT": "v2v_tpu_torch.models.eraft.ERAFT",
+    "model.nernet_model.RepresentationRecurrent":
+        "v2v_tpu_torch.models.nernet.RepresentationRecurrent",
     "torch.optim.Adam": "v2v_tpu_torch.training.optim.Adam",
     "torch.optim.AdamW": "v2v_tpu_torch.training.optim.AdamW",
     "torch.optim.SGD": "v2v_tpu_torch.training.optim.SGD",
@@ -36,11 +38,14 @@ TARGET_ALIASES: Dict[str, str] = {
         "v2v_tpu_torch.training.optim.ReduceLROnPlateau",
     "data.testh5.TestH5Dataset": "v2v_tpu_torch.data.h5.TestH5Dataset",
     "data.testh5.TestH5FlowDataset": "v2v_tpu_torch.data.h5.TestH5FlowDataset",
+    "data.testh5.TestH5EventDataset":
+        "v2v_tpu_torch.data.h5.TestH5EventDataset",
     "data.testh5.TestH5CacheDataset":
         "v2v_tpu_torch.data.h5.TestH5CacheDataset",
     "data.testh5.FPS_H5Dataset": "v2v_tpu_torch.data.h5.FPSH5Dataset",
     "data.v2v_datasets.WebvidDatasetV2":
         "v2v_tpu_torch.data.webvid.WebvidDataset",
+    "data.esim_dataset.ESIMH5Dataset": "v2v_tpu_torch.data.esim.ESIMH5Dataset",
 }
 
 

@@ -1,6 +1,6 @@
 """The h5 test datasets (port of v2v_tpu/data/h5.py::TestH5Dataset,
-TestH5FlowDataset, TestH5CacheDataset and FPSH5Dataset; reference
-data/testh5.py:14-303, :383-519).
+TestH5FlowDataset, TestH5EventDataset, TestH5CacheDataset and
+FPSH5Dataset; reference data/testh5.py:14-519).
 
 HQF-format h5 files: `images/imageNNNNNNNNN` datasets whose
 attrs["event_idx"] point into `events/{ts,xs,ys,ps}`, cut into
@@ -185,6 +185,47 @@ class TestH5FlowDataset(TestH5Dataset):
                 self.dataset_name.lower())),
             "sequence_name": self.sequence_name,
             "frame_idx": np.asarray(frame_idxs, np.int64),
+        }
+
+
+class TestH5EventDataset(TestH5Dataset):
+    """Raw event streams a frame window instead of voxels, for NerNet,
+    which voxelizes inside the model (reference data/testh5.py:305-380):
+    "events" is a list of T float64 (N,5) arrays [x, y, t, 2p-1, 0], an
+    empty window one zero row. The timestamps stay float64: float32 would
+    collapse their deltas."""
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        begin, real_begin, end = self.samples[idx]
+        frames, events = [], []
+        with self._open() as f:
+            for img_idx in range(begin, end):
+                img = f["images"][self.img_keys[img_idx + 1]][()]
+                frames.append(np.asarray(img, np.float32))
+                i0 = self._event_idx(f, img_idx)
+                i1 = self._event_idx(f, img_idx + 1)
+                evs = np.stack([
+                    f["events/xs"][i0:i1].astype(np.float64),
+                    f["events/ys"][i0:i1].astype(np.float64),
+                    f["events/ts"][i0:i1].astype(np.float64),
+                    f["events/ps"][i0:i1].astype(np.float64) * 2 - 1,
+                    np.zeros(i1 - i0, np.float64)], axis=1)
+                events.append(evs if len(evs) else np.zeros((1, 5)))
+            if self.output_additional_frame:
+                frames.insert(0, np.asarray(
+                    f["images"][self.img_keys[begin]][()], np.float32))
+        all_frames = np.stack(frames)[..., None]
+        if self.image_range == 1:
+            all_frames = all_frames / 255.0
+        t = end - begin
+        return {
+            "frame": all_frames.astype(np.float32),
+            "events": events,
+            "data_source_idx": np.int64(DATA_SOURCES.index(
+                self.dataset_name.lower())),
+            "sequence_name": self.sequence_name,
+            "real_begin_idx": np.full((t,), real_begin, np.int64),
+            "frame_idx": np.arange(begin, end, dtype=np.int64),
         }
 
 

@@ -1,6 +1,6 @@
-"""E2VID-family test harness: per-sequence streaming eval, image dump,
-metric CSV, baseline comparison (port of v2v_tpu/eval/harness.py;
-reference test_e2vid.py).
+"""E2VID-family test harness: per-sequence streaming eval (of voxels, or
+of NerNet's raw events), image dump, metric CSV, baseline comparison
+(port of v2v_tpu/eval/harness.py; reference test_e2vid.py).
 
 Fixed sequence registry, reset-on-sequence-change streaming state,
 ET-Net-compatible metrics (eval/metrics.py, LPIPS-Alex), the
@@ -107,8 +107,13 @@ def run_test(iface: ModelInterface, configs: Dict[str, Any],
             if max_batches is not None and batch_idx >= max_batches:
                 break
             seq_name = batch["sequence_name"][0]
-            events = torch.as_tensor(batch["events"], device=iface.device)
-            b, t, h, w, _ = events.shape
+            if iface.is_nernet:
+                # raw (N,5) event streams, B=1 (data/testh5.py:305-380)
+                events = batch["events"][0]
+                b, h, w = 1, *np.shape(batch["frame"])[2:4]
+            else:
+                events = torch.as_tensor(batch["events"], device=iface.device)
+                b, t, h, w, _ = events.shape
             if prev_seq is None or prev_seq != seq_name:
                 state = iface.init_state(b, h, w)     # reset_states()
                 output_img_idx = 0
@@ -117,7 +122,10 @@ def run_test(iface: ModelInterface, configs: Dict[str, Any],
                     seq_dir = os.path.join(root, output_dir, src.upper(),
                                            seq_name)
                     os.makedirs(seq_dir, exist_ok=True)
-            pred, state = eval_step(events, state)
+            if iface.is_nernet:
+                pred, state = iface.forward_sequence_nernet(events, state)
+            else:
+                pred, state = eval_step(events, state)
             pred = pred.cpu().numpy()
             if configs["test_stage"].get("need_multi_255", True):
                 pred = pred * 255
@@ -164,7 +172,8 @@ def run_test(iface: ModelInterface, configs: Dict[str, Any],
 def run_single_test(checkpoint_path: Optional[str], config: Dict[str, Any],
                     max_batches: Optional[int] = None, root: str = ".",
                     device=None) -> Dict[str, float]:
-    """(test_e2vid.py:177-194)"""
+    """(test_e2vid.py:177-194). The port builds a model without a shape,
+    so no test item is probed first (NerNet's included)."""
     iface = ModelInterface(config["module"], device)
     if checkpoint_path is not None:
         load_params_only(checkpoint_path, iface.model)

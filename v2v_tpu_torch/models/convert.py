@@ -2,9 +2,9 @@
 
 The inverse of v2v_tpu/models/convert.py::torch_state_dict_to_flax for
 the modules this package ports (the recurrent UNet zoo, EVFlowNet,
-FireNet and its legacy form, ETNet, HyperE2VID, ERAFT, the RAFT
-teachers, the LPIPS trunks): carries weights from the JAX reference into
-the port, so parity tests run both on the same numbers. Rules:
+FireNet and its legacy form, ETNet, HyperE2VID, ERAFT, NerNet, the RAFT
+teachers, the LPIPS trunks): carries weights from the JAX reference
+into the port, so parity tests run both on the same numbers. Rules:
 
   * kernel (kH,kW,I,O) -> weight (O,I,kH,kW); kernel (I,O) -> weight (O,I)
   * a transposed conv's kernel (kH,kW,O,I) (flax ConvTranspose with
@@ -15,9 +15,18 @@ the port, so parity tests run both on the same numbers. Rules:
   * batch_stats {mean, var} (BatchNorm, or InstanceNorm with running
     statistics) -> running_mean / running_var, with
     num_batches_tracked 0 (JAX does not count batches)
-  * flax child `encoders_0` of a torch ModuleList -> `encoders.0`
+  * flax child `encoders_0` of a torch ModuleList -> `encoders.0`; also
+    NerNet's Sequentials: the ValueLayer's `mlp_0`, the RepCNN's `cnn_0`,
+    the NAM cell's `conv_x_0` / `conv_h_0` / `conv_m_0` / `conv_o_0` and
+    the GCB's `channel_add_conv_0` -> `mlp.0`, `cnn.0`, `conv_x.0`, ...
   * a decoder stack's `decoders/decoders_0` -> `decoders.0` (also
-    `image_decoders` and `flow_decoders`, WNet's two stacks)
+    `image_decoders` and `flow_decoders`, WNet's two stacks, and NerNet's
+    m-stream upsampler `m_t_UpsampleLayer`)
+  * NerNet's flat flax names `representation.quantization_layer` and
+    `representation.ConvLayer` -> the two torch levels `representation`
+    / `quantization_layer` (`ConvLayer`)
+  * the GCB's LayerNorm([C, 1, 1]) (`channel_add_conv_1`): scale and bias
+    (C,) -> weight and bias (C, 1, 1)
   * ETNet's stacked streams `tri_encoder`/`tri_decoder` (leading axis 3)
     -> `trans_encoder{i}.encoder` / `trans_decoder{i}.decoder`
   * a residual block's `norm3` also as `downsample.1`, ERAFT's second
@@ -36,8 +45,12 @@ import torch
 # ported modules use)
 _MODULELISTS = ("encoders", "resblocks", "layer1", "layer2", "layer3",
                 "downsample", "mask", "DownsampleConv", "UpsampleConv",
-                "layers", "bases_net")
-_DECODER_STACKS = ("decoders", "image_decoders", "flow_decoders")
+                "layers", "bases_net", "mlp", "cnn", "conv_x", "conv_h",
+                "conv_m", "conv_o", "channel_add_conv")
+_DECODER_STACKS = ("decoders", "image_decoders", "flow_decoders",
+                   "m_t_UpsampleLayer")
+# flax modules that are a torch LayerNorm over (C, 1, 1)
+_LAYERNORM_CHW = ("channel_add_conv_1",)
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 
 
@@ -71,7 +84,9 @@ def _torch_module_path(path: Tuple[str, ...]) -> List[str]:
             i += 2
             continue
         m = _INDEXED.match(p)
-        if m and m.group(1) in _MODULELISTS:
+        if "." in p:          # one flax name for two torch levels
+            out += p.split(".")
+        elif m and m.group(1) in _MODULELISTS:
             out += [m.group(1), m.group(2)]
         else:
             out.append(p)
@@ -118,6 +133,8 @@ def jax_params_to_state_dict(flax_params: Dict[str, Any]
             arr = arr.transpose(3, 2, 0, 1)
         elif leaf == "scale":
             leaf = "weight"
+        if len(path) > 1 and path[-2] in _LAYERNORM_CHW:
+            arr = arr.reshape(-1, 1, 1)
         sd[".".join(mod + [leaf])] = torch.from_numpy(np.array(arr))
     for path, val in _leaves(flax_params.get("batch_stats", {})):
         mod = _torch_module_path(path[:-1])

@@ -35,6 +35,7 @@ class CropParameters:
         f = 2 ** num_encoders
         ph = f * math.ceil(height / f) - height
         pw = f * math.ceil(width / f) - width
+        self.height_crop_size, self.width_crop_size = height + ph, width + pw
         self.padding_top, self.padding_bottom = math.ceil(ph / 2), ph // 2
         self.padding_left, self.padding_right = math.ceil(pw / 2), pw // 2
         cy, cx = (height + ph) // 2, (width + pw) // 2

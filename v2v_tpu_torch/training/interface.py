@@ -1,6 +1,7 @@
 """Task interface: sequence forward + loss for the reconstruction
-models (E2VID and the rest of the UNet zoo, FireNet, ETNet, HyperE2VID;
-port of v2v_tpu/training/interface.py::ModelInterface).
+models (E2VID and the rest of the UNet zoo, FireNet, ETNet, HyperE2VID,
+NerNet's raw-event path; port of
+v2v_tpu/training/interface.py::ModelInterface).
 
 Batch layout at this interface is the JAX package's channels-last one:
 events (B,T,H,W,bins), frame (B,T,H,W,1), flow (B,T,H,W,2). The model
@@ -93,6 +94,9 @@ class ModelInterface:
             and m.track_running_stats for m in self.model.modules())
         # the HyperE2VID GT-mixing curriculum: beta = 1 - epoch/hyper_epochs
         self.hyper_epochs = configs.get("hyper_epochs", 0)
+        # NerNet voxelizes raw events inside the model, one sample at a
+        # time (forward_sequence_nernet)
+        self.is_nernet = configs.get("is_nernet", False)
         # the pseudo-GT teacher's dtype (v2v_tpu raft_flow's default)
         self.teacher_dtype: Optional[torch.dtype] = torch.bfloat16
         self.lpips_train = lpips
@@ -129,6 +133,12 @@ class ModelInterface:
 
     def init_state(self, batch: int, height: int, width: int,
                    dtype=torch.float32):
+        """The model's zero state for (height, width) frames: at the
+        multiple of 16 that forward_sequence pads to, or, for NerNet,
+        which pads inside, at the frames' own size."""
+        if self.is_nernet:
+            return self.model.init_state(batch, height, width, dtype,
+                                         self.device)
         ph = -(-height // 16) * 16
         pw = -(-width // 16) * 16
         return self.model.init_state(batch, ph, pw, dtype, self.device)
@@ -204,6 +214,29 @@ class ModelInterface:
                 outs.append(out["image"].permute(0, 2, 3, 1))
             imgs = torch.stack(outs, dim=1)
         return crop_from_multiple(imgs, hw).to(torch.float32), state
+
+    @torch.no_grad()
+    def forward_sequence_nernet(self, events_list: List[np.ndarray], state
+                                ) -> Tuple[torch.Tensor, Any]:
+        """NerNet's raw-event path (train_utils.py:350-378), in eval: B=1,
+        one model step a time step over `events_list`, each (N,5) float64
+        [x,y,t,p,b]. Returns (pred (1,T,H,W,1) float32, final state).
+
+        The timestamps are shifted to a zero origin in float64 before the
+        float32 cast: raw h5 stamps are absolute seconds, whose float32
+        values collapse the per-event deltas (the reference normalizes in
+        float64 for the same reason, testh5.py:329-330)."""
+        self.model.eval()
+        preds = []
+        for evs in events_list:
+            evs = np.array(evs, np.float64)
+            if evs.shape[0]:
+                evs[:, 2] -= evs[0, 2]
+            out, state = self.model(
+                torch.as_tensor(evs.astype(np.float32), device=self.device),
+                state)
+            preds.append(out["image"].permute(0, 2, 3, 1))
+        return torch.stack(preds, dim=1).to(torch.float32), state
 
     def _forward_split(self, call, events: torch.Tensor, state, tail_kw):
         """pre over B*T, a loop over T for the recurrent spine, tail over
