@@ -7,8 +7,11 @@ Phases, one line each, any failure exits non-zero:
   1. device: nvidia-smi name and power limit, torch/CUDA versions, TF32
   2. build: nvcc builds the CUDA kernels from v2v_tpu_torch/csrc, one
      process per source, all at once, and prints each kernel's registers
-     and spills; an instance of esim.cu or dynconv_bwd.cu must not spill
-  3. K2 (sample_gaussian) against its plain version: equal bits
+     and spills; an instance of dynconv_bwd.cu, esim.cu's uint8 K1 and
+     sim_interleave.cu's uint8 K5 at spp 1, 2 and 4 must not spill
+  3. K2 (sample_gaussian) against its plain version: equal bits at
+     512x512, n = 4, 4096x4096, ragged n and an unaligned output; timed
+     back to back at the three sizes (n = 4: the launch floor)
   4. K1 (simulate_batch) against its plain version at the flagship shape
      (12, 201, 128, 128), a 180x240 crop and a ragged (2, 9, 7, 9): equal
      bits on uint8 video, noise-free and noisy, and the flip budget on
@@ -131,7 +134,9 @@ plain backward at the train, a ragged and a two-chunk shape, with equal
 bits across two calls, its grid and blocks an SM printed, and timed
 beside the plain backward and the bound. K5 (simulate_interleave) is held
 against its plain version and against K1 with every pixel hot at K1's
-flagship shape, for spp 1, 2 and 4, after K1 (phase 4).
+flagship shape, for spp 1, 2 and 4, and at a ragged shape from unaligned
+video and into an unaligned output, after K1 (phase 4); it is timed
+beside K1 and the issue bound of each spp's quad loop in its SASS.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 v2v_tpu_torch package beside it, the script exits 2 and prints no result.
@@ -541,6 +546,8 @@ NERNET_VOXEL_ATOL = 1e-5
 K1_SHAPE = (12, 201, 128, 128)
 CROP_HW = (180, 240)
 K1_RAGGED = (2, 9, 7, 9)
+# K5's ragged shape: B a multiple of every spp, H*W odd, N-1 = 10
+K5_RAGGED = (4, 11, 7, 9)
 FLAGSHIP_PARAMS = 10_710_401
 # the [driver] and [etnet-train] phases: epochs before the resume,
 # batches of stand-in clips an epoch, and events a frame of the 128x128
@@ -612,6 +619,27 @@ def _cuda_ms_back_to_back(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _cuda_ms_graph(fn, reps: int) -> float:
+    """Milliseconds a call of `fn()` on the card alone: `reps` calls
+    captured in one CUDA graph, whose replay is timed between two CUDA
+    events, so that no host time a call shows, however busy the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -741,6 +769,7 @@ def phase_build() -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from v2v_tpu_torch.ops import (attention, dynconv, sim_interleave,
                                    voxel_cuda)
+    from v2v_tpu_torch.ops._sass import ptxas_summary
     libs = (voxel_cuda.LIB, attention.LIB, dynconv.LIB, dynconv.LIB_BWD,
             sim_interleave.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -749,7 +778,7 @@ def phase_build() -> dict:
         _log(f"[build] {info['path'].name} "
              + ("cached" if info["cached"] else f"in {info['seconds']:.1f} s")
              + f" (nvcc {' '.join(lib.flags)})")
-        for line in _ptxas_summary(info["log"]):
+        for line in ptxas_summary(info["log"]):
             _log(f"[build]   {line}")
     # K4's gradient kernels and K1 on uint8 video (the train step's) were
     # designed not to spill (csrc/dynconv_bwd.cu, csrc/esim.cu); K1 on
@@ -760,34 +789,22 @@ def phase_build() -> dict:
              re.search(r" [1-9]\d* bytes spill stores", bwd),
              "dynconv_bwd.cu: a kernel instance spills, or its ptxas "
              "report is missing")
-    esim = [line for line in _ptxas_summary(
+    esim = [line for line in ptxas_summary(
         infos[libs.index(voxel_cuda.LIB)]["log"])
         if line.startswith("esim_kernel<true")]
     _require(bool(esim) and all(" 0 B spill stores" in line for line in esim),
              "esim.cu: a uint8 instance spills, or its ptxas report is "
              "missing")
+    # K5's kept shapes for the experiment's spp were chosen not to spill
+    # on uint8 video (csrc/sim_interleave.cu; spp 8 spills)
+    k5 = [line for line in ptxas_summary(
+        infos[libs.index(sim_interleave.LIB)]["log"])
+        if re.match(r"sim_interleave_kernel<[124], true", line)]
+    _require(len(k5) >= 3 and all(" 0 B spill stores" in line
+                                  for line in k5),
+             "sim_interleave.cu: a uint8 instance of spp 1, 2 or 4 spills, "
+             "or its ptxas report is missing")
     return {lib.source: info for lib, info in zip(libs, infos)}
-
-
-def _ptxas_summary(log: str) -> list:
-    """One line per kernel of an `nvcc -Xptxas -v` log: its name
-    (demangled by the toolkit's cu++filt, without its parameters),
-    registers and spill bytes."""
-    kernels, name = {}, None
-    for line in log.splitlines():
-        if m := re.search(r"entry function '(\S+)'", line):
-            name = m.group(1)
-            kernels[name] = {}
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
-                                      r"bytes spill loads", line)):
-            kernels[name]["spills"] = f"{m.group(1)} B spill stores, " \
-                                      f"{m.group(2)} B spill loads"
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            kernels[name]["registers"] = int(m.group(1))
-    from v2v_tpu_torch.ops._sass import demangle, kernel_name
-    shown = demangle(list(kernels))
-    return [f"{kernel_name(full)}: {k.get('registers')} registers, "
-            f"{k.get('spills')}" for full, k in zip(shown, kernels.values())]
 
 
 def _csrc_kernels() -> set:
@@ -798,29 +815,91 @@ def _csrc_kernels() -> set:
         path.read_text())}
 
 
+def _unaligned(torch, t):
+    """`t`'s values in a view that starts one element into its storage,
+    so that no vector path of a kernel takes it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
 def phase_k2(torch, dev, seed):
+    """K2 against its plain version in equal bits at its callers' 512x512,
+    at n = 4 (one thread), at 4096x4096, at n = 4k+1 .. 4k+3 and into an
+    unaligned output (the library's C entry); its moments at 512x512;
+    timed a call at 512x512 and back to back (20 calls) through the
+    wrapper at the three sizes: the n = 4 time is the launch floor of
+    that route on this host. The wrapper's host time a call is about
+    the kernel's at 4096x4096 (67.1 MB), so the kernel's own time there,
+    and its share of the bytes bound, come from 50 calls of the C entry
+    into a preallocated output captured in a CUDA graph, beside the
+    same at n = 4: the card's own floor a call."""
     from v2v_tpu_torch.ops import voxel_cuda as vc
-    shape = (512, 512)
-    n = shape[0] * shape[1]
-    got = vc.sample_gaussian(seed, shape, device=dev)
-    want = vc.sample_gaussian_plain(seed, n, dev).view(shape)
-    torch.cuda.synchronize()
-    _require(torch.equal(got, want), "K2 differs from its plain version")
-    s = got.double().flatten()
+    from v2v_tpu_torch.ops._build import check, stream
+    for name, shape in vc.K2_SHAPES.items():
+        got = vc.sample_gaussian(seed, shape, device=dev)
+        want = vc.sample_gaussian_plain(seed, got.numel(), dev).view(shape)
+        torch.cuda.synchronize()
+        _require(torch.equal(got, want), f"K2 {name} differs from its plain "
+                                         f"version")
+        if name == "512x512":
+            first, first_want = got, want
+    for n in range(4001, 4004):
+        _require(torch.equal(vc.sample_gaussian(seed, (n,), device=dev),
+                             vc.sample_gaussian_plain(seed, n, dev)),
+                 f"K2 n={n} differs from its plain version")
+        out = _unaligned(torch, torch.zeros(n, device=dev))
+        _require(vc.LIB.get().v2v_sample_gaussian(seed, out.data_ptr(), n,
+                                                  stream()) == 0,
+                 "K2 unaligned: launch failed")
+        torch.cuda.synchronize()
+        _require(torch.equal(out, vc.sample_gaussian_plain(seed, n, dev)),
+                 f"K2 n={n} unaligned differs from its plain version")
+    s = first.double().flatten()
+    n = s.numel()
     kurt = float(((s - s.mean()) ** 4).mean() / s.var(unbiased=False) ** 2)
-    ms = _cuda_ms(lambda: vc.sample_gaussian(seed, shape, device=dev), 20)
+    ms = _cuda_ms(lambda: vc.sample_gaussian(seed, (512, 512), device=dev),
+                  20)
+    b2b = {name: _cuda_ms_back_to_back(
+        lambda shape=shape: vc.sample_gaussian(seed, shape, device=dev), 20)
+        for name, shape in vc.K2_SHAPES.items()}
+    graph = {}
+    for name in ("n=4", "4096x4096"):
+        out = torch.empty(vc.K2_SHAPES[name], dtype=torch.float32,
+                          device=dev)
+        graph[name] = _cuda_ms_graph(lambda out=out: check(
+            vc.LIB.get().v2v_sample_gaussian(seed, out.data_ptr(),
+                                             out.numel(), stream()), "K2"),
+            50)
     plain_ms = _cuda_ms(lambda: vc.sample_gaussian_plain(seed, n, dev), 5)
     bound_ms, bound_by = _bound(n * 4, 2 * n)
-    _log(f"[k2] equal bits, mean {float(s.mean()):+.5f} var "
+    large = 4096 * 4096
+    large_bound_ms, _ = _bound(large * 4, 2 * large)
+    _log(f"[k2] equal bits at {list(vc.K2_SHAPES)}, n = 4001-4003 and "
+         f"unaligned; 512x512: mean {float(s.mean()):+.5f} var "
          f"{float(s.var()):.5f} kurtosis {kurt:.4f} max|x| "
-         f"{float(s.abs().max()):.4f}; kernel {ms:.4f} ms, plain "
+         f"{float(s.abs().max()):.4f}; kernel {ms:.4f} ms a call, plain "
          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms")
+    _log(f"[k2] the wrapper back to back, 20 calls: 512x512 "
+         f"{b2b['512x512']:.4f} ms ({b2b['512x512'] / b2b['n=4']:.2f}x the "
+         f"floor); n=4 (the launch floor) {b2b['n=4']:.4f} ms; 4096x4096 "
+         f"{b2b['4096x4096']:.4f} ms (the host's route)")
+    _log(f"[k2] the card alone, 50 calls of the C entry in a CUDA graph: "
+         f"n=4 (its floor) {graph['n=4']:.4f} ms; 4096x4096 "
+         f"{graph['4096x4096']:.4f} ms against a bytes bound of "
+         f"{large_bound_ms:.4f} ms ({large * 4 / 1e6:.1f} MB; "
+         f"{large_bound_ms / graph['4096x4096']:.2f} of it)")
     return {"name": "sample_gaussian", "route": "cuda",
             "source": "v2v_tpu_torch/csrc/esim.cu",
             "replaces": "v2v_tpu/ops/voxel_pallas.py:71",
-            "max_abs_err": float((got - want).abs().max()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": float((first - first_want).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "back_to_back_ms": b2b["512x512"], "floor_ms": b2b["n=4"],
+            "large_wrapper_back_to_back_ms": b2b["4096x4096"],
+            "graph_floor_ms": graph["n=4"],
+            "large_back_to_back_ms": graph["4096x4096"],
+            "large_bound_ms": large_bound_ms}
 
 
 def phase_k1(torch, dev, seed, build):
@@ -909,13 +988,19 @@ def phase_k1(torch, dev, seed, build):
             "sass_instructions_per_pixel_frame": per_px}
 
 
-def phase_k5(torch, dev, seed, k1_ms):
+def phase_k5(torch, dev, seed, k1_ms, build):
     """K5 at K1's flagship shape, per-clip parameters and seeds from
     `seed`: against its plain version for each spp the experiment runs
     (equal bits on uint8, the flip budget on float32) and against K1 with
     every pixel hot (fraction 2.0, std 0.05) in bfloat16 (equal bits);
-    the kernel timed per spp beside K1's time from [k1]."""
+    equal bits on a ragged H*W with an odd N and on unaligned views of
+    the video and the output; a group of 2^31 elements refused; the
+    kernel timed per spp beside K1's time
+    from [k1] and K1 back to back on the same clips, and the issue bound
+    of each spp's quad loop, counted in its SASS."""
+    from v2v_tpu_torch.ops import _sass as sa
     from v2v_tpu_torch.ops import sim_interleave as si
+    from v2v_tpu_torch.ops._build import stream
     from v2v_tpu_torch.ops import voxel_cuda as vc
     from v2v_tpu_torch.ops.voxel import SimParams, sample_sim_params
     from v2v_tpu_torch.scripts.exp_sim_interleave import SPPS
@@ -961,6 +1046,49 @@ def phase_k5(torch, dev, seed, k1_ms):
             worst = max(worst, dmax)
     _log(f"[k5] uint8: equal bits with K1 (hot fraction 2.0, hot std "
          f"{si.HOT_STD}) in bfloat16 for spp {list(SPPS)}")
+    rb, rn, rh, rw = K5_RAGGED
+    ragged = _drifting_video(rb, rn, rh, rw, seed + 3, dev)
+    r_prm = [v[:rb] for v in (pos, neg, noise)]
+    r_want = si.simulate_interleave_plain(ragged, seeds[:rb], *r_prm)
+    r_out = _unaligned(torch, torch.zeros_like(r_want))
+    for spp in SPPS:
+        for name, v in (("ragged", ragged), ("unaligned video",
+                                             _unaligned(torch, ragged))):
+            got = si.simulate_interleave(v, seeds[:rb], *r_prm, spp=spp)
+            torch.cuda.synchronize()
+            _require(torch.equal(got, r_want),
+                     f"K5 {name} {K5_RAGGED} spp={spp}: bits differ")
+        _require(si.LIB.get().v2v_simulate_interleave(
+            ragged.data_ptr(), 1, vc.cached_log_table(dev).data_ptr(),
+            seeds.data_ptr(), *(v.data_ptr() for v in r_prm),
+            r_out.data_ptr(), rb, rn, rh, rw, spp, stream()) == 0,
+            f"K5 unaligned output spp={spp}: launch failed")
+        torch.cuda.synchronize()
+        _require(torch.equal(r_out, r_want),
+                 f"K5 unaligned output {K5_RAGGED} spp={spp}: bits differ")
+    _log(f"[k5] uint8 {K5_RAGGED} (H*W {rh * rw}, N-1 {rn - 1}): equal bits "
+         f"for spp {list(SPPS)}, also from unaligned video and into an "
+         f"unaligned output")
+    # the kernel's 32-bit offsets: a group of spp clips of 2^31 elements
+    # is refused by the wrapper (an expanded view allocates nothing) and
+    # by the C entry (cudaErrorInvalidValue), with nothing launched
+    big = (4, 201, 2048, 2048)
+    launches = si.simulate_interleave.launches
+    try:
+        si.simulate_interleave(video[:1, :1, :1, :1].expand(big), seeds[:4],
+                               pos[:4], neg[:4], noise[:4], spp=4)
+        refused = False
+    except ValueError:
+        refused = True
+    _require(refused and si.simulate_interleave.launches == launches,
+             f"K5 {big} spp=4: the wrapper did not refuse 2^31 elements")
+    _require(si.LIB.get().v2v_simulate_interleave(
+        video.data_ptr(), 1, vc.cached_log_table(dev).data_ptr(),
+        seeds.data_ptr(), *(v.data_ptr() for v in r_prm), r_out.data_ptr(),
+        *big, 4, stream()) == 1,
+        f"K5 {big} spp=4: the C entry did not refuse 2^31 elements")
+    _log(f"[k5] {big} at spp=4 (2^31 elements a group): refused by the "
+         f"wrapper and the C entry")
     k5 = {spp: (lambda s=spp: si.simulate_interleave(
         video, seeds, pos, neg, noise, spp=s)) for spp in SPPS}
     ms = {spp: _cuda_ms(fn, 20) for spp, fn in k5.items()}
@@ -979,14 +1107,27 @@ def phase_k5(torch, dev, seed, k1_ms):
           f"bound {bound_ms:.4f} ms ({bound_by}: {bytes_ / 1e6:.1f} MB)")
     _log(f"[k5] back to back, 20 calls: " + ", ".join(
         f"spp={s} {t:.4f} ms" for s, t in b2b.items())
-        + f"; K1 {k1_b2b:.4f} ms")
+        + f"; K1 {k1_b2b:.4f} ms; K5 spp=1 / K1 {b2b[1] / k1_b2b:.3f}")
+    report = sa.k5_issue_report(build["path"])
+    issue = {}
+    for spp in SPPS:
+        static, per, pix, _ = report[spp]
+        issue[spp] = None if per is None else sa.issue_ms(per * px_frames)
+        _log(f"[k5] SASS: sim_interleave_kernel<{spp}, true, true>'s quad "
+             f"loop ({pix} pixels of {spp} clips a thread) "
+             + (f"{per:.2f} instructions a pixel-frame issued without the "
+                f"divisions' slow paths ({static:.2f} with them); issue "
+                f"bound {issue[spp]:.4f} ms, back to back at "
+                f"{issue[spp] / b2b[spp]:.2f} of it"
+                if per is not None else "not found: issue bound not "
+                                        "measured"))
     return {"name": "simulate_interleave", "route": "cuda",
             "source": "v2v_tpu_torch/csrc/sim_interleave.cu",
             "replaces": "scripts/exp_sim_interleave.py:78",
             "max_abs_err": worst, "ms": ms[1], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "ms_by_spp": ms, "back_to_back_ms_by_spp": b2b,
-            "k1_back_to_back_ms": k1_b2b}
+            "k1_back_to_back_ms": k1_b2b, "issue_bound_ms_by_spp": issue}
 
 
 def phase_sim_interleave(torch, dev):
@@ -2903,7 +3044,8 @@ def main(argv=None) -> int:
         builds = phase_build()
         k2 = phase_k2(torch, dev, args.seed)
         k1 = phase_k1(torch, dev, args.seed, builds["esim.cu"])
-        k5 = phase_k5(torch, dev, args.seed, k1["ms"])
+        k5 = phase_k5(torch, dev, args.seed, k1["ms"],
+                      builds["sim_interleave.cu"])
         k3 = phase_k3(torch, dev, args.seed, builds["attention.cu"])
         k4 = phase_k4(torch, dev, args.seed)
         k4_bwd = phase_k4_backward(torch, dev, args.seed)

@@ -399,6 +399,70 @@ def test_sass_loop_count(monkeypatch):
     assert _sass.sass_loop(one_loop, "kernel")[:2] == (7, 5)
 
 
+def _two_kernels(first: str, second: str) -> str:
+    """The stored listing twice, as two functions: `second`'s loop is
+    one instruction longer than `first`'s."""
+    longer = SASS.replace("        /*0020*/                   NOP ;\n",
+                          "        /*0020*/                   IADD3 R6, R6, "
+                          "0x1, RZ ;\n")
+    return (SASS.replace("_Z6kernelv", first)
+            + longer.replace("_Z6kernelv", second))
+
+
+@pytest.mark.parametrize("pixels,clips", [(1, 1), (2, 1), (1, 2), (1, 4),
+                                          (2, 4)])
+def test_loop_report_divides_by_the_pixel_frames_of_a_quad(monkeypatch,
+                                                          pixels, clips):
+    """ops/_sass.py's report for any kernel's quad loop: the loop's
+    instructions (and those issued without the divisions' slow paths)
+    over the 4 frames of `pixels` pixels of `clips` clips it covers."""
+    names = {"_Za": "void esim_kernel<(bool)1, (bool)1, (bool)1, (int)2>"
+                    "(SimArgs)",
+             "_Zb": "void (anonymous namespace)::sim_interleave_kernel<"
+                    "(int)4, (bool)1, (bool)1>(K5Args)"}
+    monkeypatch.setattr(_sass, "demangle",
+                        lambda mangled: [names[m] for m in mangled])
+    listing = _two_kernels("_Za", "_Zb")
+    per = 4 * pixels * clips
+    all_, issued, body = _sass.loop_report(
+        listing, "sim_interleave_kernel<4, true, true>", pixels, clips)
+    assert (all_, issued) == (9 / per, 7 / per) and "IADD3 R6" in body
+    all_, issued, body = _sass.loop_report(
+        listing, "esim_kernel<true, true, true, 2>", pixels, clips)
+    assert (all_, issued) == (8 / per, 6 / per) and "IADD3 R6" not in body
+    assert _sass.loop_report(listing, "other", pixels, clips) == (
+        None, None, "")
+
+
+def test_k1_and_k5_issue_reports_name_their_instances(monkeypatch):
+    """k1_issue_report keeps its numbers (K1's kPix, a loop's count over
+    4 * kPix); k5_issue_report reads each kept spp's uint8 vector
+    instance with its kPix from csrc/sim_interleave.cu's table."""
+    shapes = _sass.k5_shapes()
+    assert set(shapes) == {1, 2, 4, 8}
+    assert all(p in (1, 2, 4) and t in (128, 256)
+               for p, t in shapes.values())
+    pix = _sass.k1_pixels_a_thread()
+    mangled = {f"_Zk{spp}": f"void (anonymous namespace)::"
+               f"sim_interleave_kernel<(int){spp}, (bool)1, (bool)1>(K5Args)"
+               for spp in shapes}
+    mangled["_Zesim"] = (f"void (anonymous namespace)::esim_kernel<(bool)1, "
+                         f"(bool)1, (bool)1, (int){pix}>(SimArgs)")
+    listing = "".join(SASS.replace("_Z6kernelv", m) for m in mangled)
+    monkeypatch.setattr(_sass, "demangle",
+                        lambda names: [mangled.get(n, n) for n in names])
+    monkeypatch.setattr(_sass, "sass", lambda library: listing)
+    all_, issued, got_pix, body = _sass.k1_issue_report("lib.so")
+    assert (all_, issued, got_pix) == (8 / (4 * pix), 6 / (4 * pix), pix)
+    assert "(skipped) CALL" in body
+    report = _sass.k5_issue_report("lib.so")
+    assert set(report) == set(shapes)
+    for spp, (all_, issued, got_pix, body) in report.items():
+        per = 4 * shapes[spp][0] * spp
+        assert (all_, issued, got_pix) == (8 / per, 6 / per, shapes[spp][0])
+        assert "EXIT" not in body
+
+
 def test_k1_bounds_at_the_flagship_shape():
     """Counts at 2 bytes: 118.2 MB, 0.0353 ms at 3.35 TB/s; 55
     instructions a pixel-frame issue in ~0.065 ms on 132 SMs."""

@@ -5,8 +5,11 @@ experiment scripts/exp_sim_interleave.py and against K1's plain version.
 The CPU runs K5's plain version. JAX's K5 runs in the TPU interpret
 mode, where the on-core generator yields zero bits: the port's plain
 version with every Philox word forced to zero computes the same counts.
-The kernel itself is compared with the plain version on the card (the
-`cuda` test below, and chip_smoke.py)."""
+csrc/sim_interleave.cu's thread walk is emulated in plain PyTorch
+against the plain version. The kernel itself is compared with the plain
+version on the card (the `cuda` tests below, and chip_smoke.py), as is
+K2 (csrc/esim.cu's gaussian_kernel) at ragged sizes and an unaligned
+output."""
 import importlib.util
 from pathlib import Path
 
@@ -17,6 +20,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from v2v_tpu_torch.ops import _sass
 from v2v_tpu_torch.ops import sim_interleave as si
 from v2v_tpu_torch.ops import voxel_cuda as vc
 from v2v_tpu_torch.ops.voxel import SimParams
@@ -132,6 +136,28 @@ def test_wrapper_rejects_leftover_clips_and_unknown_spp(b, spp):
                                0.5, 0.05, spp=spp)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,spp", [((4, 201, 2048, 2048), 4),
+                                       ((2 ** 31 // 16 + 1, 2, 4, 4), 1)])
+def test_wrapper_rejects_what_32_bit_offsets_cannot_reach(shape, spp):
+    """The kernel offsets a group of spp clips, and a thread, in 32 bits:
+    on a CUDA video, spp*N*H*W or B*H*W at 2^31 raises before anything
+    launches (an expanded view allocates nothing). The plain version
+    has no such limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the limit is the CUDA kernel's")
+    dev = torch.device("cuda")
+    video = torch.zeros(1, dtype=torch.uint8, device=dev).view(
+        1, 1, 1, 1).expand(shape)
+    b = shape[0]
+    launches = si.simulate_interleave.launches
+    with pytest.raises(ValueError, match="2\\^31"):
+        si.simulate_interleave(video, torch.zeros(b, dtype=torch.int32,
+                                                  device=dev), 0.4, 0.5,
+                               0.05, spp=spp)
+    assert si.simulate_interleave.launches == launches
+
+
 def test_script_run_on_cpu():
     rates = exp.run(device="cpu", shape=(4, 11, 16, 32), iters=2)
     assert set(rates) == set(exp.SPPS)
@@ -172,22 +198,145 @@ def test_script_video_is_the_jax_experiments(jax_exp, monkeypatch):
                                   stopped.value.args[0])
 
 
+def _quantize_one_division(pot, tp, tn):
+    """csrc/esim.cuh::quantize_events: one division of |pot| by the
+    threshold of the side that fires, then selects."""
+    up = pot >= tp
+    down = pot <= -tn
+    q = torch.floor(pot.abs() / torch.where(up, tp, tn))
+    pos = torch.where(up, q, 0.0)
+    neg = torch.where(down, q, 0.0)
+    return pos - neg, pot - pos * tp + neg * tn
+
+
+def _emulate_kernel(video, seeds, pos, neg, noise, spp, pix):
+    """csrc/sim_interleave.cu::sim_interleave_kernel's walk in plain
+    PyTorch, vectorized over its threads: thread t of group g (clips
+    g*spp .. g*spp + spp-1) owns pixels pix*t' .. pix*t' + pix-1 of each
+    of its clips (t' its place in the group), the ones past H*W masked
+    (they read level 0 and store nothing); every element is reached by
+    the kernel's offsets, the group's first clip plus j clips plus a
+    frame's; whole quads of 4 frames draw one Philox call a pixel and
+    clip and use its words in order, the last 1-3 frames the next
+    quad's; the counts go through the one-division quantization and are
+    stored as bfloat16. Chains are (threads, spp, pix)."""
+    b, n, h, w = video.shape
+    hw = h * w
+    per_group = -(-hw // pix)
+    t = torch.arange(b // spp * per_group)
+    group = (t // per_group).view(-1, 1, 1)
+    j = torch.arange(spp).view(1, spp, 1)
+    p = ((t.view(-1, 1, 1) - group * per_group) * pix
+         + torch.arange(pix).view(1, 1, pix))
+    valid = (p < hw).expand(-1, spp, -1)
+    clip = group * spp + j
+    src = group * spp * n * hw + j * (n * hw) + p
+    dst = group * spp * (n - 1) * hw + j * ((n - 1) * hw) + p
+    flat = video.reshape(-1)
+    out = torch.full((b * (n - 1) * hw,), float("nan"), dtype=torch.bfloat16)
+
+    def load(i):
+        idx = torch.where(valid, src + i * hw, 0)
+        return vc.log_table("cpu")[torch.where(valid, flat[idx], 0).long()]
+
+    def store(counts, i):
+        out[(dst + i * hw)[valid]] = counts[valid].to(torch.bfloat16)
+
+    tp, tn, std = pos[clip], neg[clip], noise[clip]
+    seed = seeds.to(torch.int64)[clip] & 0xFFFFFFFF
+    x, _, z, _ = vc._philox_draws(seed, p, 0, vc.STREAM_INIT)
+    pot = vc._uniform01(x) * (tp + tn) - tn
+    hot = torch.tensor(si.HOT_STD) * vc._gaussian(z)
+    prev = load(0)
+    for q in range((n - 1) // 4 + 1):
+        w4 = vc._philox_draws(seed, p, q, vc.STREAM_NOISE)
+        for f, i in enumerate(i for i in range(4 * q + 1, 4 * q + 5)
+                              if i < n):
+            log_new = load(i)
+            pot = pot + (log_new - prev)
+            pot = pot + std * vc._gaussian(w4[f])
+            pot = pot + hot
+            counts, pot = _quantize_one_division(pot, tp, tn)
+            store(counts, i - 1)
+            prev = log_new
+    return out.view(b, n - 1, h, w)
+
+
+@pytest.mark.parametrize("pix", sorted({1, 2, 4} | {
+    pix for pix, _ in _sass.k5_shapes().values()}))
+@pytest.mark.parametrize("spp", [1, 2, 4])
+@pytest.mark.parametrize("n", [8, 9])
+def test_kernel_walk_equals_plain_for_any_thread_shape(pix, spp, n):
+    """The kernel's thread shape does not change the counts: 1, 2 or 4
+    pixels (and the source's table's) of 1, 2 or 4 clips a thread, H*W
+    = 21 (a ragged last thread a group), N-1 = 7 or 8 (a ragged last
+    quad or none)."""
+    b, h, w = 4, 3, 7
+    video = torch.from_numpy(exp.make_video((b, n, h, w), pix * 10 + n))
+    seeds = torch.tensor([5, 0, 2 ** 31 - 1, 77], dtype=torch.int32)
+    pos, neg, noise = map(torch.from_numpy, _clip_params(b))
+    want = si.simulate_interleave_plain(video, seeds, pos, neg, noise)
+    got = _emulate_kernel(video, seeds, pos, neg, noise, spp, pix)
+    assert want.float().abs().mean() > 0.05
+    assert torch.equal(got, want)
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s values in a view that starts one element into its storage."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
+    """Every spp on uint8 (equal bits) and float32 (the flip budget)
+    video: whole vectors, a ragged H*W with an odd N, and unaligned
+    views of the video and the output."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
-    b, n, h, w = 8, 21, 24, 72
-    video = torch.from_numpy(exp.make_video((b, n, h, w), 3)).to(dev)
-    seeds = torch.arange(b, dtype=torch.int32, device=dev) + 11
-    pos, neg, noise = (torch.from_numpy(v).to(dev) for v in _clip_params(b))
-    for v in (video, video.to(torch.float32)):
-        want = si.simulate_interleave_plain(v, seeds, pos, neg, noise)
+    for b, n, h, w in ((8, 21, 24, 72), (8, 12, 5, 7)):
+        video = torch.from_numpy(exp.make_video((b, n, h, w), 3)).to(dev)
+        seeds = torch.arange(b, dtype=torch.int32, device=dev) + 11
+        pos, neg, noise = (torch.from_numpy(v).to(dev)
+                           for v in _clip_params(b))
+        for v in (video, video.to(torch.float32), _unaligned(video)):
+            want = si.simulate_interleave_plain(v, seeds, pos, neg, noise)
+            for spp in si.SPPS:
+                got = si.simulate_interleave(v, seeds, pos, neg, noise,
+                                             spp=spp)
+                if v.dtype == torch.uint8:
+                    assert torch.equal(got, want), (b, n, h, w, spp)
+                else:
+                    dmax, flips = _flips(got.float().cpu().numpy(),
+                                         want.float().cpu().numpy())
+                    assert dmax <= 1.0 and flips <= FLIP_RATE * want.numel()
+        # an unaligned output: the library's C entry, as the wrapper calls it
+        out = _unaligned(torch.zeros((b, n - 1, h, w), dtype=torch.bfloat16,
+                                     device=dev))
+        want = si.simulate_interleave_plain(video, seeds, pos, neg, noise)
         for spp in si.SPPS:
-            got = si.simulate_interleave(v, seeds, pos, neg, noise, spp=spp)
-            if v.dtype == torch.uint8:
-                assert torch.equal(got, want), spp
-            else:
-                dmax, flips = _flips(got.float().cpu().numpy(),
-                                     want.float().cpu().numpy())
-                assert dmax <= 1.0 and flips <= FLIP_RATE * want.numel()
+            assert si.LIB.get().v2v_simulate_interleave(
+                video.data_ptr(), 1, vc.cached_log_table(dev).data_ptr(),
+                seeds.data_ptr(), pos.data_ptr(), neg.data_ptr(),
+                noise.data_ptr(), out.data_ptr(), b, n, h, w, spp,
+                torch.cuda.current_stream().cuda_stream) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), spp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4 * 1000 + r for r in range(4)])
+def test_gaussian_kernel_matches_plain_at_ragged_sizes_on_card(n):
+    """K2 at n = 4k .. 4k+3, into an aligned and an unaligned output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    want = vc.sample_gaussian_plain(99, n, dev)
+    assert torch.equal(vc.sample_gaussian(99, (n,), device=dev), want)
+    out = _unaligned(torch.zeros(n, device=dev))
+    assert vc.LIB.get().v2v_sample_gaussian(
+        99, out.data_ptr(), n, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

@@ -1,5 +1,6 @@
 // K1: fused video -> signed event count simulator, bfloat16 counts.
-// K2: raw samples of K1's gaussian generator.
+// K2: raw samples of K1's gaussian generator (its design and bound by
+// gaussian_kernel below).
 //
 // Replaces v2v_tpu/ops/voxel_pallas.py::simulate_batch_pallas (K1, body
 // _sim_kernel) and ::sample_gaussian_pallas (K2).
@@ -57,7 +58,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cstring>
 #include <type_traits>
 
 #include "esim.cuh"
@@ -68,54 +68,11 @@ namespace {
 constexpr int kPix = 2;          // pixels a thread
 constexpr int kThreads = 256;    // threads a block
 
-// The unsigned type of kBytes bytes, for one vector load or store.
-template <int kBytes> struct Vec;
-template <> struct Vec<2> { using T = uint16_t; };
-template <> struct Vec<4> { using T = uint32_t; };
-template <> struct Vec<8> { using T = uint2; };
-
-// kN elements from src, one vector load (kVec) or element by element
-// with the first `valid` read and the rest zero.
-template <bool kVec, int kN, typename T>
-__device__ __forceinline__ void load_pixels(const T* src, int valid,
-                                            T (&dst)[kN]) {
-  if (kVec) {
-    using V = typename Vec<sizeof(T) * kN>::T;
-    const V v = __ldg(reinterpret_cast<const V*>(src));
-    memcpy(dst, &v, sizeof(V));
-  } else {
-#pragma unroll
-    for (int j = 0; j < kN; ++j) dst[j] = j < valid ? __ldg(src + j) : T(0);
-  }
-}
-
-// kN counts to dst as bfloat16 (round to nearest even): one vector store
-// (kVec) or the first `valid` element by element.
-template <bool kVec, int kN>
-__device__ __forceinline__ void store_counts(__nv_bfloat16* dst, int valid,
-                                             const float (&c)[kN]) {
-  __nv_bfloat16 h[kN];
-#pragma unroll
-  for (int j = 0; j < kN; ++j) h[j] = __float2bfloat16_rn(c[j]);
-  if (kVec) {
-    using V = typename Vec<2 * kN>::T;
-    V v;
-    memcpy(&v, h, sizeof(V));
-    *reinterpret_cast<V*>(dst) = v;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kN; ++j)
-      if (j < valid) dst[j] = h[j];
-  }
-}
-
-__device__ __forceinline__ float log_of(uint8_t v, const float* table) {
-  return table[v];
-}
-
-__device__ __forceinline__ float log_of(float v, const float*) {
-  return v2v::log_intensity(v);
-}
+// K2's threads a block; a thread makes one Philox call. At 4096x4096
+// (67.1 MB written, a bytes bound of 0.0200 ms) one and two calls a
+// thread ran 0.0229 and 0.0230 ms back to back through the C entry, a
+// tie (H100 80GB HBM3, 700 W; PERF.md), so the simpler one is kept.
+constexpr int kGaussThreads = 256;
 
 // A launch's arguments; (B,) per-clip parameters.
 struct SimArgs {
@@ -130,34 +87,6 @@ struct SimArgs {
   __nv_bfloat16* out;     // (B, N-1, H, W)
   int B, N, HW;
 };
-
-struct Clip {
-  float tp, tn, std_b;
-  uint32_t seed;
-};
-
-// One frame of kN chains: the log step, the noise, the quantization.
-template <bool kNoise, int kN, typename In>
-__device__ __forceinline__ void frame_step(const In (&raw)[kN],
-                                           const uint4 (&w)[kN], int f,
-                                           const float* table,
-                                           const Clip& c, float (&pot)[kN],
-                                           float (&prev)[kN],
-                                           const float (&hot)[kN],
-                                           float (&counts)[kN]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    const float log_new = log_of(raw[j], table);
-    pot[j] = pot[j] + (log_new - prev[j]);
-    if (kNoise) {
-      const float g = v2v::irwin_hall_gaussian(v2v::word(w[j], f));
-      pot[j] = pot[j] + c.std_b * g;
-      pot[j] = pot[j] + hot[j];
-    }
-    counts[j] = v2v::quantize_events(pot[j], c.tp, c.tn);
-    prev[j] = log_new;
-  }
-}
 
 template <bool kU8, bool kNoise, bool kVec, int kN>
 __global__ void __launch_bounds__(kThreads) esim_kernel(SimArgs a) {
@@ -181,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) esim_kernel(SimArgs a) {
                   static_cast<size_t>(b) * N * HW + p0;
   __nv_bfloat16* dst = a.out + static_cast<size_t>(b) * (N - 1) * HW + p0;
 
-  Clip c;
+  v2v::Clip c;
   c.tp = a.pos_thres[b];
   c.tn = a.neg_thres[b];
   c.std_b = 0.0f;
@@ -204,9 +133,9 @@ __global__ void __launch_bounds__(kThreads) esim_kernel(SimArgs a) {
   }
   {
     In raw[kN];
-    load_pixels<kVec>(src, valid, raw);
+    v2v::load_pixels<kVec>(src, valid, raw);
 #pragma unroll
-    for (int j = 0; j < kN; ++j) prev[j] = log_of(raw[j], s_table);
+    for (int j = 0; j < kN; ++j) prev[j] = v2v::log_of(raw[j], s_table);
   }
 
   uint4 w[kN];
@@ -217,7 +146,8 @@ __global__ void __launch_bounds__(kThreads) esim_kernel(SimArgs a) {
   if (quads > 0) {
 #pragma unroll
     for (int f = 0; f < 4; ++f)
-      load_pixels<kVec>(src + static_cast<size_t>(1 + f) * HW, valid, next[f]);
+      v2v::load_pixels<kVec>(src + static_cast<size_t>(1 + f) * HW, valid,
+                             next[f]);
   }
 #pragma unroll 1
   for (int q = 0; q < quads; ++q) {
@@ -229,8 +159,8 @@ __global__ void __launch_bounds__(kThreads) esim_kernel(SimArgs a) {
     if (q + 1 < quads) {
 #pragma unroll
       for (int f = 0; f < 4; ++f)
-        load_pixels<kVec>(src + static_cast<size_t>(4 * q + 5 + f) * HW,
-                          valid, next[f]);
+        v2v::load_pixels<kVec>(
+            src + static_cast<size_t>(4 * q + 5 + f) * HW, valid, next[f]);
     }
     if (kNoise) {
 #pragma unroll
@@ -240,9 +170,10 @@ __global__ void __launch_bounds__(kThreads) esim_kernel(SimArgs a) {
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
       float counts[kN];
-      frame_step<kNoise>(cur[f], w, f, s_table, c, pot, prev, hot, counts);
-      store_counts<kVec>(dst + static_cast<size_t>(4 * q + f) * HW, valid,
-                         counts);
+      v2v::frame_step<kNoise>(cur[f], w, f, s_table, c, pot, prev, hot,
+                              counts);
+      v2v::store_counts<kVec>(dst + static_cast<size_t>(4 * q + f) * HW,
+                              valid, counts);
     }
   }
   // the last 1-3 frames when N-1 is not a multiple of 4
@@ -258,39 +189,43 @@ __global__ void __launch_bounds__(kThreads) esim_kernel(SimArgs a) {
       if (f < rest) {
         const int i = 4 * quads + 1 + f;
         In raw[kN];
-        load_pixels<kVec>(src + static_cast<size_t>(i) * HW, valid, raw);
+        v2v::load_pixels<kVec>(src + static_cast<size_t>(i) * HW, valid,
+                               raw);
         float counts[kN];
-        frame_step<kNoise>(raw, w, f, s_table, c, pot, prev, hot, counts);
-        store_counts<kVec>(dst + static_cast<size_t>(i - 1) * HW, valid,
-                           counts);
+        v2v::frame_step<kNoise>(raw, w, f, s_table, c, pot, prev, hot,
+                                counts);
+        v2v::store_counts<kVec>(dst + static_cast<size_t>(i - 1) * HW, valid,
+                                counts);
       }
     }
   }
 }
 
-// K2: sample i is word i & 3 of the call at (i >> 2, 0, kStreamNoise);
-// a thread writes one call's 4 samples.
-__global__ void gaussian_kernel(uint32_t seed, float* __restrict__ out,
-                                long long n) {
+// K2: sample i is word i & 3 of the call at (i >> 2, 0, kStreamNoise).
+// A thread makes call t and writes its 4 samples as one 16-byte store
+// (kVec: `out` 16-byte aligned), so a warp's store covers 512
+// neighbouring bytes; the ragged last call (n % 4 != 0), or every call
+// when `out` is not aligned, stores sample by sample.
+template <bool kVec>
+__global__ void __launch_bounds__(kGaussThreads)
+    gaussian_kernel(uint32_t seed, float* __restrict__ out, long long n) {
   const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * kGaussThreads + threadIdx.x;
   const long long i0 = 4 * t;
   if (i0 >= n) return;
   const uint4 w = v2v::philox_draws(seed, static_cast<uint32_t>(t), 0,
                                     v2v::kStreamNoise);
+  const float4 g = make_float4(
+      v2v::irwin_hall_gaussian(w.x), v2v::irwin_hall_gaussian(w.y),
+      v2v::irwin_hall_gaussian(w.z), v2v::irwin_hall_gaussian(w.w));
+  if (kVec && i0 + 4 <= n) {
+    *reinterpret_cast<float4*>(out + i0) = g;
+  } else {
+    const float s[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
-  for (int f = 0; f < 4; ++f)
-    if (i0 + f < n) out[i0 + f] = v2v::irwin_hall_gaussian(v2v::word(w, f));
-}
-
-// Whether kN pixels a thread can load and store as one vector: H*W a
-// multiple of kN and both pointers aligned to the vectors.
-template <int kN>
-bool vector_ok(const SimArgs& a, bool u8) {
-  const uintptr_t in_bytes = static_cast<uintptr_t>(kN) * (u8 ? 1 : 4);
-  return a.HW % kN == 0 &&
-         reinterpret_cast<uintptr_t>(a.video) % in_bytes == 0 &&
-         reinterpret_cast<uintptr_t>(a.out) % (2 * kN) == 0;
+    for (int f = 0; f < 4; ++f)
+      if (i0 + f < n) out[i0 + f] = s[f];
+  }
 }
 
 template <bool kU8, bool kNoise, bool kVec>
@@ -319,13 +254,13 @@ extern "C" int v2v_simulate_batch(const void* video, int video_is_u8,
                   static_cast<__nv_bfloat16*>(out), B, N, H * W};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (video_is_u8) {
-    const bool vec = vector_ok<kPix>(a, true);
+    const bool vec = v2v::vector_ok<kPix>(video, true, out, a.HW);
     if (noise_free)
       return vec ? start<true, false, true>(a, s)
                  : start<true, false, false>(a, s);
     return vec ? start<true, true, true>(a, s) : start<true, true, false>(a, s);
   }
-  const bool vec = vector_ok<kPix>(a, false);
+  const bool vec = v2v::vector_ok<kPix>(video, false, out, a.HW);
   if (noise_free)
     return vec ? start<false, false, true>(a, s)
                : start<false, false, false>(a, s);
@@ -334,12 +269,14 @@ extern "C" int v2v_simulate_batch(const void* video, int video_is_u8,
 
 extern "C" int v2v_sample_gaussian(int seed, float* out, long long n,
                                    void* stream) {
-  constexpr int kGaussThreads = 256;
   const long long calls = (n + 3) / 4;
   const unsigned blocks =
       static_cast<unsigned>((calls + kGaussThreads - 1) / kGaussThreads);
-  gaussian_kernel<<<blocks, kGaussThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t>(seed), out, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t key = static_cast<uint32_t>(seed);
+  if (reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    gaussian_kernel<true><<<blocks, kGaussThreads, 0, s>>>(key, out, n);
+  else
+    gaussian_kernel<false><<<blocks, kGaussThreads, 0, s>>>(key, out, n);
   return static_cast<int>(cudaGetLastError());
 }

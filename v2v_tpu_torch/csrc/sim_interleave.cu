@@ -3,34 +3,59 @@
 //
 // Replaces scripts/exp_sim_interleave.py::simulate (body _kernel), an
 // experiment on whether independent per-pixel state chains in one
-// program hide the latency of the simulator's ~30-op float32 chain per
-// frame. The arithmetic is K1's (esim.cu) with the hot-pixel mask always
-// on and the hot std fixed at 0.05.
+// program hide the latency of the simulator's chain a frame. The
+// arithmetic is K1's (esim.cu) with the hot-pixel mask always on and the
+// hot std fixed at 0.05.
 //
 // What bounds it: the video read once and the counts written once. At
 // the experiment's shape (B=12, N=201, 128x128, uint8 in, bfloat16 out)
-// that is 39.5 MB + 78.6 MB = 118.2 MB, about 35 us at 3.35 TB/s; the
-// 12 float32 operations a pixel and frame are far below that. On an
-// H100 it takes ~6x that (0.22 ms back to back at kSpp = 1, PERF.md),
-// with the time growing with the work: it is bound by issued
-// instructions, K1's chain a pixel and frame (a quarter of a Philox
-// call, one division: esim.cuh, philox.cuh) with none of K1's sharing
-// of a call's set-up between pixels (esim.cu).
+// that is 39.5 MB + 78.6 MB = 118.2 MB, 0.0353 ms at 3.35 TB/s. But, as
+// for K1, each pixel-frame issues a chain of integer and float32
+// instructions (a quarter of a Philox call, the Irwin-Hall sum, the
+// potential update, one IEEE division, the residual): chip_smoke.py's
+// [k5] counts them in this file's SASS, a pixel-frame of each instance's
+// quad loop, and gives the issue bound they set.
 //
-// Design: one thread per (pixel, group of kSpp clips). Each of the kSpp
-// chains keeps its potential, previous log value, hot noise and
-// parameters in registers, and the frame loop runs the kSpp chains
-// unrolled one after the other, so their loads, Philox rounds and
-// divisions are independent instructions the scheduler can overlap. That
-// interleaving is what the experiment measures: kSpp = 1 is K1's thread
-// with bfloat16 output. Neighbouring threads hold neighbouring x, so
-// each frame's uint8 reads and bfloat16 writes coalesce across a warp.
-// The TPU kernel's row tile (a VMEM budget) has no counterpart here.
+// Design: K1's thread (esim.cu), looped over kSpp clips. A thread owns
+// kPix neighbouring pixels of each of kSpp clips, kPix * kSpp
+// independent chains in registers, each one K1's:
+// - each frame loads kPix uint8 of a clip as one vector and stores kPix
+//   bfloat16 counts as one vector; where H*W is not a multiple of kPix
+//   or a pointer is not aligned for the vector, the same thread shape
+//   loads and stores pixel by pixel and masks the clip's ragged tail
+//   (esim.cuh's load_pixels, store_counts, vector_ok);
+// - the 1 KB log table of the 256 uint8 levels sits in shared memory;
+// - the frame loop walks quads of 4 frames with the next quad's loads
+//   for all kSpp clips in flight; a quad makes one Philox call a pixel
+//   and clip, whose words the unrolled quad picks by a compile-time
+//   frame (esim.cuh's frame_step); the last 1-3 frames run after the
+//   loop;
+// - a clip's offset is worked out once, and a frame's is a 32-bit add
+//   (the wrapper keeps a group of kSpp clips under 2^31 elements).
+// spp keeps its meaning, clips a thread, so the experiment still
+// measures whether more independent chains a thread hide the chain's
+// latency; at kSpp = 1 this is K1's thread with every pixel hot.
+//
+// kPix and the block size for each spp were chosen on the card by a
+// sweep, back to back through the C entry at the experiment's shape
+// (H100 80GB HBM3, 700 W; PERF.md; ms, blocks of 128 / 256 threads):
+//            1 pixel a thread  2 pixels          4 pixels
+//   spp 1    0.1012 / 0.1014   0.0923 / 0.0914   0.0915 / 0.1094
+//   spp 2    0.1060 / 0.1025   0.0956 / 0.1176   0.1464 / 0.1496
+//   spp 4    0.1049 / 0.1645   0.1536 / 0.1535   0.3118 / 0.3678
+// K1 on the same clips ran 0.0912. Up to 4 chains a thread the time
+// stays within 15% of K1's; at 8 chains (ptxas: 152-210 registers) an
+// SM holds too few warps, and at 16 (spp 4 x 4 pixels) it spills. So
+// more clips a thread do not hide the chain's latency better than more
+// pixels or more threads. Only the kept shapes are built;
+// scripts/k5_designs.py times them against an older tree.
+// spp 8, outside the experiment, is 8 chains at its least (1 pixel); its
+// uint8 instance uses 255 registers and spills.
 //
 // Random bits: every draw is K1's, keyed by the clip's own seed in K1's
 // layout (philox.cuh: one call serves a pixel's 4 frames), so the result
-// does not depend on kSpp or the launch shape and the plain PyTorch
-// version reproduces it.
+// depends on neither kSpp, kPix nor the launch shape, and the plain
+// PyTorch version reproduces it.
 //
 // Rounding: build with -fmad=false and never --use_fast_math, as K1
 // (esim.cu, esim.cuh): the potential update keeps the plain version's
@@ -39,7 +64,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "esim.cuh"
 #include "philox.cuh"
@@ -48,87 +75,181 @@ namespace {
 
 constexpr float kHotStd = 0.05f;
 
-template <int kSpp, bool kU8>
-__global__ void sim_interleave_kernel(const void* __restrict__ video,
-                                      const float* __restrict__ table,
-                                      const int32_t* __restrict__ seeds,
-                                      const float* __restrict__ pos_thres,
-                                      const float* __restrict__ neg_thres,
-                                      const float* __restrict__ noise_std,
-                                      __nv_bfloat16* __restrict__ out,
-                                      int groups, int N, int HW) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(groups) * HW) return;
-  const int group = static_cast<int>(idx / HW);
-  const uint32_t p =
-      static_cast<uint32_t>(idx - static_cast<long long>(group) * HW);
+// Pixels a thread (kPix) and threads a block (kThreads), by clips a
+// thread (kSpp).
+template <int kSpp> struct Shape;
+template <> struct Shape<1> { static constexpr int kPix = 2, kThreads = 256; };
+template <> struct Shape<2> { static constexpr int kPix = 2, kThreads = 128; };
+template <> struct Shape<4> { static constexpr int kPix = 1, kThreads = 128; };
+template <> struct Shape<8> { static constexpr int kPix = 1, kThreads = 128; };
 
-  float tp[kSpp], tn[kSpp], std_b[kSpp], pot[kSpp], hot[kSpp], prev[kSpp];
-  uint32_t seed[kSpp];
-  size_t in_base[kSpp], out_base[kSpp];
+// A launch's arguments; (B,) per-clip parameters.
+struct K5Args {
+  const void* video;      // (B, N, H, W) uint8 or float32
+  const float* table;     // log values of the 256 uint8 levels
+  const int32_t* seeds;
+  const float* pos_thres;
+  const float* neg_thres;
+  const float* noise_std;
+  __nv_bfloat16* out;     // (B, N-1, H, W)
+  int groups, N, HW;      // groups = B / kSpp
+};
+
+template <int kSpp, bool kU8, bool kVec>
+__global__ void __launch_bounds__(Shape<kSpp>::kThreads)
+    sim_interleave_kernel(K5Args a) {
+  constexpr int kPix = Shape<kSpp>::kPix;
+  using In = typename std::conditional<kU8, uint8_t, float>::type;
+  __shared__ float s_table[256];
+  if (kU8) {
+    for (int k = threadIdx.x; k < 256; k += blockDim.x)
+      s_table[k] = a.table[k];
+    __syncthreads();
+  }
+  const int HW = a.HW, N = a.N;
+  const int per_group = (HW + kPix - 1) / kPix;  // threads a group
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.groups * per_group) return;
+  const int group = t / per_group;
+  const int p0 = (t - group * per_group) * kPix;
+  const int valid = min(kPix, HW - p0);
+  // the group's first clip; clip j is j clips further, in 32 bits
+  const In* src = static_cast<const In*>(a.video) +
+                  static_cast<size_t>(group) * kSpp * N * HW + p0;
+  __nv_bfloat16* dst =
+      a.out + static_cast<size_t>(group) * kSpp * (N - 1) * HW + p0;
+  const int in_clip = N * HW, out_clip = (N - 1) * HW;
+
+  v2v::Clip c[kSpp];
+  float pot[kSpp][kPix], hot[kSpp][kPix], prev[kSpp][kPix];
 #pragma unroll
   for (int j = 0; j < kSpp; ++j) {
     const int b = group * kSpp + j;
-    tp[j] = pos_thres[b];
-    tn[j] = neg_thres[b];
-    std_b[j] = noise_std[b];
-    seed[j] = static_cast<uint32_t>(seeds[b]);
-    // K1's start-up call: x the initial potential, z the hot value (the
-    // mask, y, is always on here)
-    const uint4 w0 = v2v::philox_draws(seed[j], p, 0, v2v::kStreamInit);
-    pot[j] = v2v::uniform01(w0.x) * (tp[j] + tn[j]) - tn[j];
-    hot[j] = kHotStd * v2v::irwin_hall_gaussian(w0.z);
-    in_base[j] = static_cast<size_t>(b) * N * HW + p;
-    out_base[j] = static_cast<size_t>(b) * (N - 1) * HW + p;
-    prev[j] = v2v::load_log<kU8>(video, in_base[j], table);
-  }
-  uint4 w[kSpp];
-  for (int i = 1; i < N; ++i) {
-    const int f = (i - 1) & 3;  // the word of this frame's noise
+    c[j].tp = a.pos_thres[b];
+    c[j].tn = a.neg_thres[b];
+    c[j].std_b = a.noise_std[b];
+    c[j].seed = static_cast<uint32_t>(a.seeds[b]);
 #pragma unroll
-    for (int j = 0; j < kSpp; ++j) {
-      if (f == 0)
-        w[j] = v2v::philox_draws(seed[j], p, (i - 1) >> 2,
-                                 v2v::kStreamNoise);
-      const float log_new = v2v::load_log<kU8>(
-          video, in_base[j] + static_cast<size_t>(i) * HW, table);
-      pot[j] = pot[j] + (log_new - prev[j]);
-      const float g = v2v::irwin_hall_gaussian(v2v::word(w[j], f));
-      pot[j] = pot[j] + std_b[j] * g;
-      pot[j] = pot[j] + hot[j];
-      out[out_base[j] + static_cast<size_t>(i - 1) * HW] =
-          __float2bfloat16_rn(v2v::quantize_events(pot[j], tp[j], tn[j]));
-      prev[j] = log_new;
+    for (int k = 0; k < kPix; ++k) {
+      // K1's start-up call: x the initial potential, z the hot value
+      // (the mask, y, is always on here)
+      const uint4 w =
+          v2v::philox_draws(c[j].seed, p0 + k, 0, v2v::kStreamInit);
+      pot[j][k] = v2v::uniform01(w.x) * (c[j].tp + c[j].tn) - c[j].tn;
+      hot[j][k] = kHotStd * v2v::irwin_hall_gaussian(w.z);
+    }
+    In raw[kPix];
+    v2v::load_pixels<kVec>(src + j * in_clip, valid, raw);
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) prev[j][k] = v2v::log_of(raw[k], s_table);
+  }
+
+  uint4 w[kSpp][kPix];
+  const int quads = (N - 1) >> 2;  // whole quads of frames
+  In next[4][kSpp][kPix];
+  if (quads > 0) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int j = 0; j < kSpp; ++j)
+        v2v::load_pixels<kVec>(src + (j * in_clip + (1 + f) * HW), valid,
+                               next[f][j]);
+  }
+  // the quad's first count frame; its video frames start one further
+  int off = 0;
+#pragma unroll 1
+  for (int q = 0; q < quads; ++q, off += 4 * HW) {
+    In cur[4][kSpp][kPix];
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int j = 0; j < kSpp; ++j)
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) cur[f][j][k] = next[f][j][k];
+    if (q + 1 < quads) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+#pragma unroll
+        for (int j = 0; j < kSpp; ++j)
+          v2v::load_pixels<kVec>(src + (j * in_clip + off + (5 + f) * HW),
+                                 valid, next[f][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kSpp; ++j)
+#pragma unroll
+      for (int k = 0; k < kPix; ++k)
+        w[j][k] = v2v::philox_draws(c[j].seed, p0 + k, q, v2v::kStreamNoise);
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int j = 0; j < kSpp; ++j) {
+        float counts[kPix];
+        v2v::frame_step<true>(cur[f][j], w[j], f, s_table, c[j], pot[j],
+                              prev[j], hot[j], counts);
+        v2v::store_counts<kVec>(dst + (j * out_clip + off + f * HW), valid,
+                                counts);
+      }
+  }
+  // the last 1-3 frames when N-1 is not a multiple of 4
+  const int rest = (N - 1) - 4 * quads;
+  if (rest > 0) {
+#pragma unroll
+    for (int j = 0; j < kSpp; ++j)
+#pragma unroll
+      for (int k = 0; k < kPix; ++k)
+        w[j][k] =
+            v2v::philox_draws(c[j].seed, p0 + k, quads, v2v::kStreamNoise);
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      if (f < rest) {
+#pragma unroll
+        for (int j = 0; j < kSpp; ++j) {
+          In raw[kPix];
+          v2v::load_pixels<kVec>(src + (j * in_clip + off + (1 + f) * HW),
+                                 valid, raw);
+          float counts[kPix];
+          v2v::frame_step<true>(raw, w[j], f, s_table, c[j], pot[j], prev[j],
+                                hot[j], counts);
+          v2v::store_counts<kVec>(dst + (j * out_clip + off + f * HW), valid,
+                                  counts);
+        }
+      }
     }
   }
 }
 
-constexpr int kThreads = 256;
+template <int kSpp, bool kU8, bool kVec>
+int start(const K5Args& a, cudaStream_t s) {
+  constexpr int kPix = Shape<kSpp>::kPix, kThreads = Shape<kSpp>::kThreads;
+  const long long total =
+      static_cast<long long>(a.groups) * ((a.HW + kPix - 1) / kPix);
+  const unsigned blocks =
+      static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  sim_interleave_kernel<kSpp, kU8, kVec><<<blocks, kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int kSpp>
-void launch(const void* video, int video_is_u8, const float* table,
-            const int32_t* seeds, const float* pos_thres,
-            const float* neg_thres, const float* noise_std,
-            __nv_bfloat16* out, int B, int N, int HW, cudaStream_t s) {
-  const int groups = B / kSpp;
-  const long long threads = static_cast<long long>(groups) * HW;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  if (video_is_u8)
-    sim_interleave_kernel<kSpp, true><<<blocks, kThreads, 0, s>>>(
-        video, table, seeds, pos_thres, neg_thres, noise_std, out, groups, N,
-        HW);
-  else
-    sim_interleave_kernel<kSpp, false><<<blocks, kThreads, 0, s>>>(
-        video, table, seeds, pos_thres, neg_thres, noise_std, out, groups, N,
-        HW);
+int launch(const K5Args& a, bool u8, cudaStream_t s) {
+  constexpr int kPix = Shape<kSpp>::kPix;
+  // one pixel a thread is always a whole, aligned "vector"
+  if constexpr (kPix == 1) {
+    return u8 ? start<kSpp, true, true>(a, s) : start<kSpp, false, true>(a, s);
+  } else {
+    const bool vec = v2v::vector_ok<kPix>(a.video, u8, a.out, a.HW);
+    if (u8)
+      return vec ? start<kSpp, true, true>(a, s)
+                 : start<kSpp, true, false>(a, s);
+    return vec ? start<kSpp, false, true>(a, s)
+               : start<kSpp, false, false>(a, s);
+  }
 }
 
 }  // namespace
 
-// Returns a cudaError_t; cudaErrorInvalidValue (1) for a kSpp without an
-// instance or a B that is not a multiple of it (the wrapper checks both).
+// Returns a cudaError_t; cudaErrorInvalidValue (1) for a spp without an
+// instance, a B that is not a multiple of it, or a group of spp clips
+// (or B*H*W) of 2^31 elements or more (the wrapper checks all three).
 extern "C" int v2v_simulate_interleave(const void* video, int video_is_u8,
                                        const float* table,
                                        const int32_t* seeds,
@@ -137,20 +258,21 @@ extern "C" int v2v_simulate_interleave(const void* video, int video_is_u8,
                                        const float* noise_std, void* out,
                                        int B, int N, int H, int W, int spp,
                                        void* stream) {
-  if (spp <= 0 || B % spp) return static_cast<int>(cudaErrorInvalidValue);
-  const int hw = H * W;
+  const long long hw = static_cast<long long>(H) * W;
+  if (spp <= 0 || B % spp || static_cast<long long>(spp) * N * hw > INT_MAX ||
+      B * hw > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const K5Args a{video,     table,     seeds,
+                 pos_thres, neg_thres, noise_std,
+                 static_cast<__nv_bfloat16*>(out), B / spp, N,
+                 static_cast<int>(hw)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  const bool u8 = video_is_u8 != 0;
   switch (spp) {
-    case 1: launch<1>(video, video_is_u8, table, seeds, pos_thres, neg_thres,
-                      noise_std, o, B, N, hw, s); break;
-    case 2: launch<2>(video, video_is_u8, table, seeds, pos_thres, neg_thres,
-                      noise_std, o, B, N, hw, s); break;
-    case 4: launch<4>(video, video_is_u8, table, seeds, pos_thres, neg_thres,
-                      noise_std, o, B, N, hw, s); break;
-    case 8: launch<8>(video, video_is_u8, table, seeds, pos_thres, neg_thres,
-                      noise_std, o, B, N, hw, s); break;
+    case 1: return launch<1>(a, u8, s);
+    case 2: return launch<2>(a, u8, s);
+    case 4: return launch<4>(a, u8, s);
+    case 8: return launch<8>(a, u8, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 """Read a built library's machine code with the CUDA toolkit's tools:
 kernel names (cu++filt), SASS listings (cuobjdump), the instructions a
 kernel's main loop issues, and the time the card needs just to issue a
-count of instructions. chip_smoke.py's [build], [k1] and [k3] and
-scripts/k1_designs.py use them; they need the toolkit, not a card.
+count of instructions. chip_smoke.py's [build], [k1], [k3] and [k5]
+and scripts/k1_designs.py and k5_designs.py use them; they need the
+toolkit, not a card.
 """
 from __future__ import annotations
 
@@ -48,6 +49,26 @@ def kernel_name(demangled: str) -> str:
             break
     name = name.replace("(bool)1", "true").replace("(bool)0", "false")
     return re.sub(r"\(int\)(-?\d+)", r"\1", name)
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of an `nvcc -Xptxas -v` log: its name
+    (demangled by the toolkit's cu++filt, without its parameters),
+    registers and spill bytes."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"entry function '(\S+)'", line):
+            name = m.group(1)
+            kernels[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            kernels[name]["spills"] = f"{m.group(1)} B spill stores, " \
+                                      f"{m.group(2)} B spill loads"
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[name]["registers"] = int(m.group(1))
+    shown = demangle(list(kernels))
+    return [f"{kernel_name(full)}: {k.get('registers')} registers, "
+            f"{k.get('spills')}" for full, k in zip(shown, kernels.values())]
 
 
 def sass(path) -> str:
@@ -137,15 +158,46 @@ def k1_pixels_a_thread() -> int:
     return int(re.search(r"constexpr int kPix = (\d+);", src).group(1))
 
 
-def k1_issue_report(library: Path):
-    """Instructions a pixel-frame in K1's main-path instance (uint8,
-    noise, vector loads), counted in the SASS of its quad loop (4 frames
-    of kPix pixels) in the built library: (all of the loop's, those it
-    issues when no division takes its slow path, kPix, the loop's
-    listing), or (None, None, kPix, '') when the loop was not found."""
-    pix = k1_pixels_a_thread()
-    count, issued, listing = sass_loop(
-        sass(library), f"esim_kernel<true, true, true, {pix}>")
+def k5_shapes() -> dict:
+    """csrc/sim_interleave.cu's kept thread shapes: {spp: (pixels a
+    thread, threads a block)}."""
+    from ._build import CSRC
+    src = (CSRC / "sim_interleave.cu").read_text()
+    return {int(spp): (int(pix), int(threads)) for spp, pix, threads in
+            re.findall(r"struct Shape<(\d+)> \{ static constexpr int "
+                       r"kPix = (\d+), kThreads = (\d+); \}", src)}
+
+
+def loop_report(listing: str, function: str, pixels: int, clips: int = 1):
+    """Instructions a pixel-frame in the quad loop (4 frames of `pixels`
+    pixels of `clips` clips a thread) of `function` in a `cuobjdump
+    -sass` listing: (all of the loop's, those it issues when no division
+    takes its slow path, the loop's listing), or (None, None, '') when
+    the loop was not found."""
+    count, issued, body = sass_loop(listing, function)
     if count is None:
-        return None, None, pix, ""
-    return count / (4 * pix), issued / (4 * pix), pix, listing
+        return None, None, ""
+    per = 4 * pixels * clips
+    return count / per, issued / per, body
+
+
+def k1_issue_report(library: Path):
+    """`loop_report` of K1's main-path instance (uint8, noise, vector
+    loads) in the built library: (all, issued, kPix, the loop's listing),
+    or (None, None, kPix, '') when the loop was not found."""
+    pix = k1_pixels_a_thread()
+    count, issued, listing = loop_report(
+        sass(library), f"esim_kernel<true, true, true, {pix}>", pix)
+    return count, issued, pix, listing
+
+
+def k5_issue_report(library: Path) -> dict:
+    """`loop_report` of K5's uint8 instance with vector loads, for each
+    kept spp: {spp: (all, issued, kPix, the loop's listing)}."""
+    listing = sass(library)
+    report = {}
+    for spp, (pix, _) in k5_shapes().items():
+        count, issued, body = loop_report(
+            listing, f"sim_interleave_kernel<{spp}, true, true>", pix, spp)
+        report[spp] = (count, issued, pix, body)
+    return report

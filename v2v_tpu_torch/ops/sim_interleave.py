@@ -5,9 +5,9 @@ one thread, as a CUDA kernel, with its plain PyTorch version.
 an experiment on whether several independent per-pixel state chains in
 one program hide the latency of the simulator's float32 chain. It is
 K1's chain (ops/voxel_cuda.py) with a hot-pixel gaussian of std 0.05 on
-every pixel, written as bfloat16 counts. The source is
-v2v_tpu_torch/csrc/sim_interleave.cu (design and bound notes there),
-built at first use and loaded with ctypes.
+every pixel, written as bfloat16 counts, in K1's thread looped over
+`spp` clips. The source is v2v_tpu_torch/csrc/sim_interleave.cu (design
+and bound notes there), built at first use and loaded with ctypes.
 
 Where the port differs from the TPU kernel, by design:
 
@@ -20,6 +20,9 @@ Where the port differs from the TPU kernel, by design:
   of `spp` unsimulated; the wrapper raises ValueError for B % spp != 0.
 - The TPU kernel's row tile (`tile_h`) is a VMEM budget with no
   counterpart on the card and is not a parameter.
+- Size: the kernel offsets a group of `spp` clips in 32 bits, so the
+  wrapper raises ValueError for a CUDA video when spp*N*H*W or B*H*W
+  reaches 2^31 (the plain version has no such limit).
 """
 from __future__ import annotations
 
@@ -103,6 +106,9 @@ def simulate_interleave(video: torch.Tensor, seeds: torch.Tensor, pos, neg,
         raise ValueError(f"B={b} clips is not a multiple of spp={spp}")
     if video.device.type != "cuda":
         return simulate_interleave_plain(video, seeds, pos, neg, noise)
+    if max(spp * n, b) * h * w >= 2 ** 31:
+        raise ValueError(f"video {tuple(video.shape)} at spp={spp}: a group "
+                         f"of clips or B*H*W reaches 2^31 elements")
     dev = video.device
     if seeds.device != dev or seeds.shape != (b,):
         raise ValueError("seeds must be a (B,) tensor on the video's device")

@@ -105,6 +105,12 @@ def _gaussian(w: torch.Tensor) -> torch.Tensor:
 # K2: raw gaussian samples
 # ---------------------------------------------------------------------------
 
+# The sizes K2 is measured at (chip_smoke.py's [k2],
+# scripts/k5_designs.py): its callers' shape, one thread (the launch
+# floor of the route) and a size at which the work dominates (67.1 MB).
+K2_SHAPES = {"512x512": (512, 512), "n=4": (4,), "4096x4096": (4096, 4096)}
+
+
 def sample_gaussian_plain(seed: int, n: int, device) -> torch.Tensor:
     """Sample i is word i & 3 of the call at (i >> 2, 0, STREAM_NOISE)."""
     calls = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
