@@ -9,6 +9,13 @@ Phases, one line each, any failure exits non-zero:
      process per source, all at once, and prints each kernel's registers
      and spills; an instance of dynconv_bwd.cu, esim.cu's uint8 K1 and
      sim_interleave.cu's uint8 K5 at spp 1, 2 and 4 must not spill
+  2b. the C++ voxel builder of the h5 eval path ([native-voxel]): g++
+     builds v2v_tpu_torch/csrc/voxel_builder.cpp; on a 720x1280 frame of
+     400,000 events at 5 bins (EVAID) and a 260x346 one at 15 bins
+     (ERAFT's MVSEC setting) it equals events_to_voxel_np for discrete
+     bins and is within 1e-9 for bilinear ones; both timed on the host
+     (ms a frame, Mev/s); the stand-in eval sequences voxelize with it,
+     as the port's TestH5Dataset does by default
   3. K2 (sample_gaussian) against its plain version: equal bits at
      512x512, n = 4, 4096x4096, ragged n and an unaligned output; timed
      back to back at the three sizes (n = 4: the launch floor)
@@ -123,6 +130,25 @@ Phases, one line each, any failure exits non-zero:
      in 7b on seeded stand-in windows through the port's ESIMTransform
      (no h5py there) ([esim-train]: K1 0 launches, the data comes
      voxelized)
+ 14e. the event ops ([events-ops]): each function of ops/events.py and
+     ops/voxel.py::events_to_voxel on a 720x1280 frame of 400,000 events
+     padded to 2^19, card against CPU (integer-valued outputs equal,
+     float ones within 1e-5 x (1 + max|cpu|)), events_to_voxel equal to
+     events_to_voxel_np and to events_to_voxel_sorted; ms each on the card
+ 14f. the V2E pixel model ([v2e]): each threshold model on a (201, 128,
+     128) uint8 stand-in clip, noise off card against CPU within the flip
+     budget, noise on within 5% of the CPU's mean |count|; ms a clip
+ 14g. WebVid's output="voxel" ([webvid-voxel]): the flagship's stand-in
+     clips through data/webvid.py::VoxelOutput (the numpy emulator on the
+     host, ms a clip), then `--steps` flagship train steps at full width
+     from those voxels: finite losses, K1 launched 0 times
+ 14h. the legacy datasets ([legacy-data]): a seeded 260x346 memmap
+     recording (100 frames, 2,000,000 events, optic flow) through
+     SequenceDataset at L=40 with the pause chain, voxel noise, hot
+     pixels, hot events filtered, RandomCrop 128, flips and LegacyNorm
+     for each voxel method (items/s on the host); one between_frames
+     window through the flagship E2VID's eval step on the card, finite
+     and equal twice from a reset state
  15. the K5 experiment: v2v_tpu_torch/scripts/exp_sim_interleave.py at
      its full workload (12 clips of 201 uint8 frames at 128x128, spp 1,
      2 and 4, 50 chained launches a run); K5's launch count must equal
@@ -573,6 +599,29 @@ EXP_PER_S = 16 * 132 * 1.98e9
 # 2); the Philox integer work has no entry in the data sheet's rate table,
 # so [k1] also counts K1's issued instructions in its SASS
 K1_FLOPS_NOISY = 12
+# [native-voxel]: one frame of EVAID's eval (720x1280, 5 bins, EVAL_EVENTS_
+# PER_FRAME) and of ERAFT's MVSEC setting (260x346, 15 bins); the C++
+# builder against events_to_voxel_np: equal for discrete bins, within this
+# for bilinear ones (its weights come from t_us * scale, numpy's from
+# t_us / (dt + 1e-4) * (B - 1); tests/test_native.py's bound)
+NATIVE_FRAMES = (("EVAID", EVAL_HW, 5, EVAL_EVENTS_PER_FRAME),
+                 ("MVSEC", FLOW_EVAL_HW, 15, FLOW_EVAL_EVENTS_PER_FRAME))
+NATIVE_BILINEAR_ATOL = 1e-9
+# [events-ops]: EVAID's frame padded to 2^19 events; float sums on the
+# card add in atomic order, so they agree with the CPU's to float32
+# rounding: |card - cpu| <= EVENTS_RTOL * (1 + max|cpu|)
+EVENTS_PAD = 1 << 19
+EVENTS_RTOL = 1e-5
+# [v2e]: the flagship's clip shape; with noise on, the card's mean
+# |count| a pixel-frame within this share of the CPU's (other streams)
+V2E_CLIP = (201, 128, 128)
+V2E_NOISY_BAND = 0.05
+# [legacy-data]: an MVSEC-sized (DAVIS346) memmap recording
+LEGACY_HW = (260, 346)
+LEGACY_FRAMES = 100
+LEGACY_EVENTS = 2_000_000
+LEGACY_SEQUENCES = 2          # sequence items timed a voxel method
+
 # Flip budget of two float32 log implementations (docs/PERF.md, "Round 4:
 # device-log flip budget"): |delta| <= 1 at a rate <= 5e-4.
 FLIP_RATE = 5e-4
@@ -605,6 +654,18 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median milliseconds of `fn()` on the host over `reps` runs after
+    one warm-up run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -722,7 +783,8 @@ def phase_device(torch):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     _require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    _log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    _log(card)
     _log(f"[device] {torch.cuda.get_device_name(0)} x"
          f"{torch.cuda.device_count()}  python {sys.version.split()[0]}  "
          f"torch {torch.__version__}  cuda {torch.version.cuda}")
@@ -732,6 +794,7 @@ def phase_device(torch):
     torch.backends.cuda.matmul.allow_tf32 = True
     _log("[device] tf32: cudnn.allow_tf32=True cuda.matmul.allow_tf32=True "
          "(off for the float32 comparisons)")
+    return card
 
 
 def _kernels():
@@ -2207,8 +2270,10 @@ class _SyntheticSequence:
     contract of TestH5Dataset (frame (T,H,W,1) in [0,255], or [0,1] where
     the data config's image_range is 1, events
     (T,H,W,bins)): a drifting texture as GT and uniform random events at
-    a fixed rate, both from numpy with `seed`, voxelized on the host by
-    the port's events_to_voxel_np with the data config's settings. Where
+    a fixed rate, both from numpy with `seed`, voxelized on the host with
+    the data config's settings by the builder it selects, as the port's
+    TestH5Dataset does: the C++ builder unless use_native_voxel_builder
+    is false, then events_to_voxel_np. Where
     the config sets output_additional_frame, T+1 frames lead by the one
     before the first events; where it sets output_additional_evs, T+1
     event groups lead by the one before. With `flow`, the layout of
@@ -2228,8 +2293,11 @@ class _SyntheticSequence:
 
     def __getitem__(self, idx):
         import numpy as np
+        from v2v_tpu_torch.data.native import events_to_voxel_native
         from v2v_tpu_torch.data.sources import DATA_SOURCES
         from v2v_tpu_torch.ops.voxel import events_to_voxel_np
+        voxelize = (events_to_voxel_native if self.data_cfg.get(
+            "use_native_voxel_builder", True) else events_to_voxel_np)
         rng = np.random.default_rng(self.seed)
         h, w = self.hw
         cell = 16
@@ -2244,7 +2312,7 @@ class _SyntheticSequence:
         for t in range(-extra_evs, self.frames):
             n = self.events_per_frame
             ts = np.sort(rng.uniform(t / 30.0, (t + 1) / 30.0, n))
-            voxels.append(events_to_voxel_np(
+            voxels.append(voxelize(
                 ts, rng.integers(0, w, n), rng.integers(0, h, n),
                 rng.integers(0, 2, n).astype(np.uint8),
                 num_bins=self.data_cfg["num_bins"], height=h, width=w,
@@ -2265,6 +2333,34 @@ class _SyntheticSequence:
         else:
             item["real_begin_idx"] = np.zeros((self.frames,), np.int64)
         return item
+
+
+def _write_memmap(root, seed, hw, frames, n_events, duration=2.0):
+    """An RPG MemMap recording (the layout data/legacy.py::MemMapDataset
+    reads) written with numpy from `seed` into `root`: `n_events` uniform
+    events over `duration` seconds (t.npy, xy.npy, p.npy), `frames` uint8
+    images stamped evenly over it (images.npy (N,H,W,1), timestamps.npy)
+    and a smooth optic flow a frame (optic_flow.npy (N,2,H,W), px/s). It
+    stands in for a recording: none is in the repository."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    os.makedirs(root, exist_ok=True)
+    np.save(os.path.join(root, "t.npy"),
+            np.sort(rng.uniform(0.0, duration, n_events)))
+    np.save(os.path.join(root, "xy.npy"), np.stack(
+        [rng.integers(0, w, n_events), rng.integers(0, h, n_events)],
+        axis=1).astype(np.int16))
+    np.save(os.path.join(root, "p.npy"),
+            rng.integers(0, 2, n_events).astype(np.uint8))
+    np.save(os.path.join(root, "images.npy"),
+            rng.integers(0, 256, (frames, h, w, 1), dtype=np.uint8))
+    np.save(os.path.join(root, "timestamps.npy"),
+            np.linspace(0.0, duration, frames))
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    flow = np.stack([np.sin(3 * yy), np.cos(2 * xx)]).astype(np.float32)
+    np.save(os.path.join(root, "optic_flow.npy"),
+            np.repeat(flow[None] * 20.0, frames, axis=0))
 
 
 class _SyntheticEventSequence:
@@ -3019,6 +3115,391 @@ def phase_flow_eval(torch, dev, seed, profile=False, config=None,
         _profile(torch, f"{tag}-profile", lambda: eval_step(ev, state))
     return final
 
+def _frame_events(seed, hw, n):
+    """One frame's window of `n` uniform events at `hw` over 1/30 s, from
+    100 s into a recording, as an h5 file stores them: float64 second
+    stamps, uint16 pixels, polarities in {0, 1}."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    return (100.0 + np.sort(rng.uniform(0.0, 1 / 30, n)),
+            rng.integers(0, w, n).astype(np.uint16),
+            rng.integers(0, h, n).astype(np.uint16),
+            rng.integers(0, 2, n).astype(np.uint8))
+
+
+def phase_native_voxel(seed, card):
+    """[native-voxel]: build csrc/voxel_builder.cpp with g++, hold it
+    against events_to_voxel_np on EVAID's and MVSEC's frame (equal for
+    discrete bins, within NATIVE_BILINEAR_ATOL for bilinear), time both on
+    the host (median of 5), then 8 EVAID frames on 4 threads as the eval
+    loader's test_num_workers voxelize them, and check that
+    _SyntheticSequence, like the port's TestH5Dataset, voxelizes with the
+    builder by default."""
+    import numpy as np
+    from v2v_tpu_torch.data import native
+    from v2v_tpu_torch.ops.voxel import events_to_voxel_np
+    tag = "native-voxel"
+    built = native.LIB.build()
+    _log(f"[{tag}] g++ {' '.join(native.FLAGS)}: {built['seconds']:.2f} s"
+         f"{' (cached)' if built['cached'] else ''}, {built['path']}")
+    for name, hw, bins, n in NATIVE_FRAMES:
+        ev = _frame_events((seed, hw[0]), hw, n)
+        for interp in (False, True):
+            kw = dict(num_bins=bins, height=hw[0], width=hw[1],
+                      interpolate_bins=interp)
+            got = native.events_to_voxel_native(*ev, **kw)
+            want = events_to_voxel_np(*ev, **kw)
+            err = float(np.abs(got - want).max())
+            binning = "bilinear" if interp else "discrete"
+            _require(got.dtype == want.dtype and got.shape == want.shape
+                     and np.abs(want).sum() > 0, f"{tag}: {name} {binning}")
+            _require(err <= NATIVE_BILINEAR_ATOL if interp
+                     else np.array_equal(got, want),
+                     f"{tag}: {name} {binning}: the builder differs from "
+                     f"numpy by {err:.2e}")
+            ms = _host_ms(lambda: native.events_to_voxel_native(*ev, **kw), 5)
+            np_ms = _host_ms(lambda: events_to_voxel_np(*ev, **kw), 5)
+            _log(f"[{tag}] {name} {hw[0]}x{hw[1]} {bins} bins {n} events "
+                 f"{binning}: builder {ms:.2f} ms/frame ({n / ms / 1e3:.1f} "
+                 f"Mev/s), numpy {np_ms:.2f} ms/frame ({n / np_ms / 1e3:.1f} "
+                 f"Mev/s), {np_ms / ms:.2f}x; max|builder - numpy| {err:.2e}"
+                 f"; host of {card}")
+    # the eval harness's loader voxelizes on test_num_workers threads (4
+    # in the test configs); the builder's ctypes call lets go of the GIL
+    from concurrent.futures import ThreadPoolExecutor
+    name, hw, bins, n = NATIVE_FRAMES[0]
+    frames = [_frame_events((seed, i), hw, n) for i in range(8)]
+    for interp in (False, True):
+        kw = dict(num_bins=bins, height=hw[0], width=hw[1],
+                  interpolate_bins=interp)
+        for label, fn in (("builder", native.events_to_voxel_native),
+                          ("numpy", events_to_voxel_np)):
+            with ThreadPoolExecutor(4) as pool:
+                ms = _host_ms(lambda: list(pool.map(
+                    lambda ev: fn(*ev, **kw), frames)), 3) / len(frames)
+            _log(f"[{tag}] {name} {'bilinear' if interp else 'discrete'} "
+                 f"on 4 threads, 8 frames: {label} {ms:.2f} ms a frame")
+    cfg = ETNET_CONFIG["test_stage"]["test"][0]
+    seqs = [_SyntheticSequence("s", seed, 2, EVAL_HW, EVAL_EVENTS_PER_FRAME,
+                               c)[0]["events"]
+            for c in (cfg, dict(cfg, use_native_voxel_builder=False))]
+    err = float(np.abs(seqs[0] - seqs[1]).max())
+    _require("use_native_voxel_builder" not in cfg
+             and err <= (NATIVE_BILINEAR_ATOL if cfg["interpolate_bins"]
+                         else 0.0) and np.abs(seqs[0]).sum() > 0,
+             f"{tag}: _SyntheticSequence's voxels differ between builders "
+             f"by {err:.2e}")
+    _log(f"[{tag}] _SyntheticSequence (ETNet's test set, interpolate_bins "
+         f"{cfg['interpolate_bins']}) voxelizes with the builder by "
+         f"default: max|builder - numpy| {err:.2e}")
+
+
+def phase_events_ops(torch, dev, seed):
+    """[events-ops]: each function of ops/events.py and ops/voxel.py::
+    events_to_voxel on EVAID's frame (720x1280, EVAL_EVENTS_PER_FRAME
+    events padded to EVENTS_PAD, the tail off the sensor) on the card
+    against the same call on the CPU: integer-valued outputs equal, float
+    ones within EVENTS_RTOL. events_to_voxel (discrete) also equals the
+    host's events_to_voxel_np, and events_to_voxel_sorted equals it."""
+    import numpy as np
+    from v2v_tpu_torch.ops import events as eo
+    from v2v_tpu_torch.ops.voxel import (events_to_voxel, events_to_voxel_np,
+                                         relative_us)
+    tag = "events-ops"
+    (h, w), n, e = EVAL_HW, EVAL_EVENTS_PER_FRAME, EVENTS_PAD
+    ts, xs, ys, ps = _frame_events((seed, 7), EVAL_HW, n)
+    rng = np.random.default_rng((seed, 8))
+
+    def pad(a, fill, dtype):
+        out = np.full(e, fill, dtype)
+        out[:n] = a
+        return out
+
+    host = {"xi": pad(xs, w + 5, np.float32), "yi": pad(ys, -3, np.float32),
+            "xs": pad(xs + rng.random(n) - 0.5, w + 5, np.float32),
+            "ys": pad(ys + rng.random(n) - 0.5, -3, np.float32),
+            "ts": pad(ts - ts[0], 1.0, np.float32),
+            "ps": pad(ps * 2.0 - 1.0, 50.0, np.float32),
+            "t_us": pad(relative_us(ts), 0, np.int32),
+            "x32": pad(xs, w + 5, np.int32), "y32": pad(ys, h + 5, np.int32),
+            "p01": pad(ps, 1, np.uint8),
+            "flow": (rng.standard_normal((h, w, 2)) * 3).astype(np.float32)}
+    t_ref = float(host["ts"][n // 2])
+    hw, vb = (h, w), dict(num_bins=5, height=h, width=w)
+    cases = (
+        ("events_to_image", True, lambda d: eo.events_to_image(
+            d["xi"], d["yi"], d["ps"], n, sensor_size=hw)),
+        ("events_to_image bilinear", False, lambda d: eo.events_to_image(
+            d["xs"], d["ys"], d["ps"], n, sensor_size=hw,
+            interpolation="bilinear")),
+        ("events_to_voxel_bilinear", False,
+         lambda d: eo.events_to_voxel_bilinear(
+             d["xi"], d["yi"], d["ts"], d["ps"], n, num_bins=5,
+             sensor_size=hw)),
+        ("events_to_voxel_bilinear discrete", True,
+         lambda d: eo.events_to_voxel_bilinear(
+             d["xi"], d["yi"], d["ts"], d["ps"], n, num_bins=5,
+             sensor_size=hw, temporal_bilinear=False)),
+        ("events_to_neg_pos_voxel", False,
+         lambda d: eo.events_to_neg_pos_voxel(
+             d["xi"], d["yi"], d["ts"], d["ps"], n, num_bins=5,
+             sensor_size=hw)),
+        ("events_to_timestamp_image", False,
+         lambda d: eo.events_to_timestamp_image(
+             d["xs"], d["ys"], d["ts"], d["ps"], n, sensor_size=hw)),
+        ("warp_events_by_flow", False, lambda d: eo.warp_events_by_flow(
+            d["xs"], d["ys"], d["ts"], d["flow"], t_ref)),
+        ("events_to_voxel_sorted", True, lambda d: eo.events_to_voxel_sorted(
+            d["t_us"], d["x32"], d["y32"], d["p01"], n, **vb)),
+        ("events_to_voxel", True, lambda d: events_to_voxel(
+            d["t_us"], d["x32"], d["y32"], d["p01"], n, **vb)),
+        ("events_to_voxel bilinear", False, lambda d: events_to_voxel(
+            d["t_us"], d["x32"], d["y32"], d["p01"], n, **vb,
+            interpolate_bins=True)),
+    )
+    cpu = {k: torch.from_numpy(v) for k, v in host.items()}
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    outs = {}
+    for name, exact, fn in cases:
+        want, got = fn(cpu), fn(card)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        errs = []
+        for g, c in zip(got, want):
+            g = g.cpu()
+            _require(g.shape == c.shape and g.dtype == c.dtype
+                     and bool(torch.isfinite(g).all()) and bool(c.any()),
+                     f"{tag}: {name}: {tuple(g.shape)} {g.dtype}")
+            err = float((g - c).abs().max())
+            scale = 1.0 + float(c.abs().max())
+            _require(torch.equal(g, c) if exact
+                     else err <= EVENTS_RTOL * scale,
+                     f"{tag}: {name}: card and CPU differ by {err:.3e}")
+            errs.append(err)
+        ms = _cuda_ms(lambda: fn(card), 5)
+        outs[name] = got[0]
+        _log(f"[{tag}] {name}: {ms:.3f} ms on the card; max|card - cpu| "
+             f"{max(errs):.2e}" + (" (equal)" if exact else
+                                   f" (tolerance {EVENTS_RTOL:g} x "
+                                   f"(1 + max|cpu|))"))
+    want = events_to_voxel_np(ts, xs, ys, ps, **vb)
+    _require(np.array_equal(outs["events_to_voxel"].cpu().numpy(), want),
+             f"{tag}: events_to_voxel differs from events_to_voxel_np")
+    _require(torch.equal(outs["events_to_voxel_sorted"],
+                         outs["events_to_voxel"]),
+             f"{tag}: events_to_voxel_sorted differs from events_to_voxel")
+    _log(f"[{tag}] events_to_voxel on the card equals events_to_voxel_np "
+         f"and events_to_voxel_sorted ({n} events, {h}x{w}, 5 bins)")
+
+
+def phase_v2e(torch, dev, seed):
+    """[v2e]: ops/voxel_v2e.py on a (201, 128, 128) uint8 stand-in clip
+    for each threshold model: noise off (threshold stds, the noise-rate
+    spread, jitter and shot noise 0; low pass, leak and refractory clip
+    on) on the card against the CPU within the flip budget (FLIP_RATE, at
+    most 1 count); noise on (the defaults with a 30 Hz low pass and 5 Hz
+    shot noise): finite counts whose mean |count| is within V2E_NOISY_BAND
+    of the CPU run's."""
+    from v2v_tpu_torch.ops.voxel_v2e import (THRESHOLD_MODELS, V2EConfig,
+                                             v2e_video_to_voxel)
+    tag = "v2e"
+    video = _drifting_video(1, *V2E_CLIP, seed + 11, dev)[0]
+    quiet = dict(thres_mean_std=0.0, thres_diff_std=0.0,
+                 noise_rate_cov_decades=0.0, leak_jitter_fraction=0.0,
+                 shot_noise_rate_hz=0.0, cutoff_hz=30.0, leak_rate_hz=0.5,
+                 refractory_period_s=0.01, thres_diff_mean=0.04)
+    noisy = dict(cutoff_hz=30.0, shot_noise_rate_hz=5.0)
+    cpu = torch.device("cpu")
+    for model in THRESHOLD_MODELS:
+        res = {}
+        for kind, kw in (("noise-free", quiet), ("noisy", noisy)):
+            cfg = V2EConfig(threshold_model=model, **kw)
+            runs = [v2e_video_to_voxel(
+                video.to(d), cfg, torch.Generator(device=d).manual_seed(
+                    seed)).cpu() for d in (dev, cpu)]
+            for r in runs:
+                _require(r.shape == (V2E_CLIP[0] - 1,) + V2E_CLIP[1:]
+                         and bool(torch.isfinite(r).all())
+                         and bool(r.any()), f"{tag}: {model} {kind}")
+            res[kind] = runs
+        dmax, rate = _counts_diff(*res["noise-free"])
+        _require(dmax <= 1.0 and rate <= FLIP_RATE,
+                 f"{tag}: {model} noise-free: card and CPU differ by "
+                 f"{dmax} at a rate {rate:.2e}")
+        mc, mh = (float(r.abs().mean()) for r in res["noisy"])
+        _require(abs(mc - mh) <= V2E_NOISY_BAND * mh,
+                 f"{tag}: {model} noisy: mean |count| card {mc:.5f} cpu "
+                 f"{mh:.5f}")
+        cfg = V2EConfig(threshold_model=model, **noisy)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        ms = _cuda_ms(lambda: v2e_video_to_voxel(video, cfg, g), 3, 1)
+        _log(f"[{tag}] {model}: noise-free card vs CPU max|diff| {dmax:g} "
+             f"at a rate {rate:.2e} (budget {FLIP_RATE:g}), "
+             f"{float(res['noise-free'][1].abs().sum()):.0f} events; noisy "
+             f"mean |count| card {mc:.5f} cpu {mh:.5f} (band "
+             f"{V2E_NOISY_BAND:g}); {ms:.2f} ms a clip on the card")
+
+
+def phase_webvid_voxel(torch, dev, seed, steps):
+    """[webvid-voxel]: the flagship's seeded stand-in clips through the
+    port's WebVid voxel branch (data/webvid.py::VoxelOutput, the numpy
+    emulator on the host), then `steps` flagship train steps at full width
+    on the card from those voxels (make_train_step without a simulator):
+    finite losses and K1 launched 0 times."""
+    import numpy as np
+    from v2v_tpu_torch.data.interface import collate
+    from v2v_tpu_torch.data.webvid import VoxelOutput
+    from v2v_tpu_torch.losses.lpips import LPIPS
+    from v2v_tpu_torch.training.interface import ModelInterface
+    from v2v_tpu_torch.training.raft import random_teacher
+    from v2v_tpu_torch.training.steps import make_train_step
+    from v2v_tpu_torch.training.train import make_optimizer
+    tag = "webvid-voxel"
+    stage = FLAGSHIP_STAGE
+    data_cfg = dict(stage["dataset"]["train"][0], output="voxel")
+    b = stage["dataset"]["train_batch_size"]
+    t, hw = data_cfg["sequence_length"], data_cfg["crop_size"]
+    clips = _DriftingClips(data_cfg, seed + 13, b)
+    voxel = VoxelOutput(data_cfg)
+    items, host_ms = [], []
+    for i in range(b):
+        clip = clips[i]
+        t0 = time.perf_counter()
+        item = voxel(clip["video"], clip["video"][..., None],
+                     np.random.RandomState(seed * 1000 + i))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        items.append(dict(item, data_source_idx=clip["data_source_idx"]))
+    host = collate(items)
+    _require(host["events"].shape == (b, t, hw, hw, 5)
+             and host["frame"].shape == (b, t, hw, hw, 1)
+             and np.isfinite(host["events"]).all()
+             and np.abs(host["events"]).sum() > 0,
+             f"{tag}: events {host['events'].shape}, frames "
+             f"{host['frame'].shape}")
+    batch = {k: torch.from_numpy(host[k]).to(dev)
+             for k in ("events", "frame", "data_source_idx")}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    iface = ModelInterface(FLAGSHIP_MODULE, dev, generator=g,
+                           lpips=LPIPS("vgg", dev, generator=g),
+                           teacher=random_teacher(12, dev, generator=g))
+    opt = make_optimizer(stage["optimizer"]).make(iface.model.parameters())
+    step = make_train_step(iface, opt)
+    torch.cuda.synchronize()
+    _zero_launches()
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, aux = step(batch, g)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        _require(math.isfinite(losses[-1])
+                 and math.isfinite(float(aux["grad_norm"])),
+                 f"{tag}: loss {losses[-1]}")
+    launches = _read_launches()
+    _require(not any(launches.values()), f"{tag}: kernels launched "
+                                         f"{launches}")
+    _log(f"[{tag}] {b} clips of {clips[0]['video'].shape[0]} frames at "
+         f"{hw}x{hw} through VoxelOutput: {statistics.median(host_ms):.1f} "
+         f"host ms a clip (median; {sum(host_ms) / 1e3:.2f} s for the "
+         f"batch); mean |count| {float(np.abs(host['events']).mean()):.4f}")
+    _log(f"[{tag}] flagship B={b} T={t} bf16 from voxels: losses "
+         + ", ".join(f"{x:.5f}" for x in losses) + f"; ms/step after the "
+         f"first {statistics.median(times[1:] or times):.1f} (all: "
+         + ", ".join(f"{x:.1f}" for x in times) + f"); launches {launches}")
+    return launches
+
+
+def phase_legacy_data(torch, dev, seed):
+    """[legacy-data]: a seeded MVSEC-sized memmap recording written into a
+    temporary directory (LEGACY_HW, LEGACY_FRAMES frames, LEGACY_EVENTS
+    events, optic flow) read by SequenceDataset at L=40 with a pause
+    chain, voxel noise, hot pixels, hot events filtered, RandomCrop 128,
+    flips and LegacyNorm, for each voxel method (items/s on the host);
+    then one between_frames window through the flagship E2VID's eval step
+    at full width on the card, twice from a reset state: finite and
+    equal."""
+    import random
+    import shutil
+    import numpy as np
+    from v2v_tpu_torch.data.legacy import SequenceDataset
+    from v2v_tpu_torch.training.interface import ModelInterface
+    from v2v_tpu_torch.training.steps import make_eval_step
+    tag = "legacy-data"
+    root = tempfile.mkdtemp(prefix="chip_smoke_memmap_")
+    try:
+        t0 = time.perf_counter()
+        _write_memmap(root, seed, LEGACY_HW, LEGACY_FRAMES, LEGACY_EVENTS)
+        _log(f"[{tag}] memmap recording {LEGACY_HW[0]}x{LEGACY_HW[1]}, "
+             f"{LEGACY_FRAMES} frames, {LEGACY_EVENTS} events, optic flow: "
+             f"written in {time.perf_counter() - t0:.2f} s")
+        per_frame = LEGACY_EVENTS // LEGACY_FRAMES
+        methods = {
+            "between_frames": {"method": "between_frames"},
+            "k_events": {"method": "k_events", "k": per_frame,
+                         "sliding_window_w": per_frame // 4},
+            "t_seconds": {"method": "t_seconds", "t": 0.02,
+                          "sliding_window_t": 0.005}}
+        window = None
+        for name, method in methods.items():
+            random.seed(seed)
+            np.random.seed(seed)
+            t0 = time.perf_counter()
+            seq = SequenceDataset(
+                root, 40, step_size=20, proba_pause_when_running=0.05,
+                proba_pause_when_paused=0.9,
+                noise_kwargs={"noise_std": 0.1, "noise_fraction": 0.1},
+                hot_pixel_kwargs={"hot_pixel_std": 0.1},
+                dataset_kwargs={"voxel_method": method,
+                                "filter_hot_events": True,
+                                "transforms": {"RandomCrop": {"size": 128},
+                                               "RandomFlip": {},
+                                               "LegacyNorm": {}}})
+            open_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = [seq[i] for i in range(LEGACY_SEQUENCES)]
+            dt = time.perf_counter() - t0
+            for sample in got:
+                _require(len(sample) == 40 and all(
+                    it["events"].shape == (128, 128, 5)
+                    and it["events"].dtype == np.float32
+                    and np.isfinite(it["events"]).all() for it in sample),
+                    f"{tag}: {name}: an item's events")
+                _require(name != "between_frames" or all(
+                    it["frame"].shape == (128, 128, 1)
+                    and it["flow"].shape == (128, 128, 2) for it in sample),
+                    f"{tag}: {name}: an item's frame or flow")
+            _log(f"[{tag}] {name}: {len(seq.dataset)} windows, {len(seq)} "
+                 f"sequences; opened in {open_s:.2f} s (hot-event mask); "
+                 f"{LEGACY_SEQUENCES / dt:.2f} sequences/s, "
+                 f"{LEGACY_SEQUENCES * 40 / dt:.1f} items/s on the host")
+            if name == "between_frames":
+                window = got[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    events = torch.from_numpy(np.stack([it["events"] for it in window])
+                              )[None].to(dev)
+    iface = ModelInterface(FLAGSHIP_MODULE, dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed))
+    step = make_eval_step(iface)
+    _zero_launches()
+    preds = [step(events, iface.init_state(1, 128, 128))[0]
+             for _ in range(2)]
+    launches = _read_launches()
+    _require(preds[0].shape[:2] == (1, 40)
+             and bool(torch.isfinite(preds[0]).all()),
+             f"{tag}: prediction {tuple(preds[0].shape)}")
+    _require(torch.equal(*preds), f"{tag}: two runs from a reset state "
+                                  f"differ")
+    _require(not any(launches.values()), f"{tag}: kernels launched "
+                                         f"{launches}")
+    _log(f"[{tag}] one between_frames window (1, 40, 128, 128, 5) through "
+         f"the flagship E2VID's eval step: finite, equal from a reset "
+         f"state twice; launches {launches}")
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3040,8 +3521,9 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     try:
-        phase_device(torch)
+        card = phase_device(torch)
         builds = phase_build()
+        phase_native_voxel(args.seed, card)
         k2 = phase_k2(torch, dev, args.seed)
         k1 = phase_k1(torch, dev, args.seed, builds["esim.cu"])
         k5 = phase_k5(torch, dev, args.seed, k1["ms"],
@@ -3116,6 +3598,11 @@ def main(argv=None) -> int:
             torch, dev, args.seed, module=ESIM_TRAIN_MODULE,
             stage=ESIM_TRAIN_STAGE, tag="esim-train", stand_in=_ESIMStandIn,
             k1_per_step=0)
+        phase_events_ops(torch, dev, args.seed)
+        phase_v2e(torch, dev, args.seed)
+        paths["webvid-voxel"] = phase_webvid_voxel(torch, dev, args.seed,
+                                                   args.steps)
+        paths["legacy-data"] = phase_legacy_data(torch, dev, args.seed)
         paths["sim-interleave"] = phase_sim_interleave(torch, dev)
     except Exception as e:   # every phase failure ends the run non-zero
         import traceback

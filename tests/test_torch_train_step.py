@@ -225,8 +225,8 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port, and chip_smoke.py, import without JAX or
-    the JAX package, and without cv2, PyYAML, h5py or tensorboardX at
-    module level: the card's machine has none of them."""
+    the JAX package, and without msgpack, cv2, PyYAML, h5py or
+    tensorboardX at module level: the card's machine has none of them."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -235,7 +235,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "'v2v_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'v2v_tpu', 'cv2', 'yaml', "
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'v2v_tpu', 'cv2', "
+        "'yaml', "
         "'h5py', 'tensorboardX')]\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -8,10 +8,12 @@ import pytest
 
 from v2v_tpu.data.interface import DataLoader as JDataLoader
 from v2v_tpu.data.webvid import WebvidDataset as JWebvid
+from v2v_tpu.ops.voxel import esim_video_to_voxel_np as j_esim_video_to_voxel_np
 
 from v2v_tpu_torch.config import resolve_target
 from v2v_tpu_torch.data.interface import ConcatDataset, DataLoader
 from v2v_tpu_torch.data.webvid import WebvidDataset
+from v2v_tpu_torch.ops.voxel import esim_video_to_voxel_np
 
 import chip_smoke
 from test_data import _write_video
@@ -98,10 +100,73 @@ def test_sample_enumeration_matches_jax(clips, kw):
     assert [s[3] for s in tds.samples] == jds.sample_neg_thres
 
 
-def test_voxel_output_not_ported(clips):
+VOXEL_CASES = {
+    "sampled": {},
+    "fixed_thresholds": {"use_fixed_thresholds": True},
+    "scaled_noise": {"scale_noise_strength": True,
+                     "base_noise_std_range": [0.1, 0.3],
+                     "hot_pixel_fraction_range": [0.05, 0.2]},
+    "noise_external": {"put_noise_external": True,
+                       "max_thres_pos_neg_gap": 3.0},
+    "frames_per_bin": {"frames_per_bin": 2, "output_additional_frame": True},
+    "additional_evs": {"output_additional_evs": True, "shake_frames": 4,
+                       "shake_std": 1.0},
+    "gray_in_bgr_out": {"color_mode": "gray_in_bgr_out",
+                        "use_fixed_thresholds": True},
+}
+
+
+@pytest.mark.parametrize("case", sorted(VOXEL_CASES))
+def test_voxel_items_equal_jax_at_fixed_seed(clips, case):
+    """output="voxel": the thresholds (the video's pair, or drawn with
+    the gap and the coin), the noise stds, the numpy emulator's draws,
+    the frames_per_bin sums and the GT frames, bit for bit."""
     root, listing = clips
-    with pytest.raises(NotImplementedError, match="P14"):
-        WebvidDataset(root, _cfg(listing, output="voxel"))
+    cfg = _cfg(listing, output="voxel", **VOXEL_CASES[case])
+    jds, tds = JWebvid(root, cfg), WebvidDataset(root, cfg)
+    assert len(tds) == len(jds) >= 2
+    for i in (0, len(tds) - 1):
+        want, got = jds[i], tds[i]
+        assert sorted(got) == sorted(want), (case, i)
+        assert got["v2e_params"] == want["v2e_params"], (case, i)
+        for k, v in want.items():
+            if k == "v2e_params":
+                continue
+            assert np.asarray(got[k]).dtype == np.asarray(v).dtype, (case, k)
+            np.testing.assert_array_equal(got[k], v, err_msg=f"{case} {k}")
+        fpb = cfg.get("frames_per_bin", 1)
+        extra = (cfg.get("output_additional_evs", False),
+                 cfg.get("output_additional_frame", False))
+        assert got["events"].shape == (2 + extra[0], 32, 32, 5)
+        assert got["frame"].shape[:3] == (2 + extra[1], 32, 32)
+        assert np.abs(got["events"]).sum() > 0
+        assert fpb == 1 or np.abs(got["events"]).max() >= 1
+
+
+@pytest.mark.parametrize("external", [False, True])
+def test_esim_video_to_voxel_np_equals_jax(external):
+    """The numpy emulator without an rng draws from the global np.random
+    in JAX's order: equal counts after the same np.random.seed."""
+    video = np.random.RandomState(5).randint(0, 256, (9, 12, 10)).astype(
+        np.float32)
+    args = (video, 0.3, 0.45, 0.1, 0.05, 0.2, external)
+    np.random.seed(11)
+    want = j_esim_video_to_voxel_np(*args)
+    np.random.seed(11)
+    got = esim_video_to_voxel_np(*args)
+    assert got.shape == (8, 12, 10) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(got).sum() > 0
+
+
+def test_voxel_output_not_ported(clips):
+    """output="voxel" is ported now (above); an output of another name
+    is refused."""
+    root, listing = clips
+    assert WebvidDataset(root, _cfg(listing, output="voxel")).voxel_output
+    assert WebvidDataset(root, _cfg(listing)).voxel_output is None
+    with pytest.raises(ValueError, match="output"):
+        WebvidDataset(root, _cfg(listing, output="frames"))
 
 
 def test_config_alias_resolves():

@@ -4,10 +4,12 @@ FPSH5Dataset; reference data/testh5.py:14-519).
 
 HQF-format h5 files: `images/imageNNNNNNNNN` datasets whose
 attrs["event_idx"] point into `events/{ts,xs,ys,ps}`, cut into
-fixed-length streaming samples. Voxels come from the host voxelizer
-`events_to_voxel_np`, the same bits as the reference's; the JAX
-package's optional C++ builder gives the same voxels and is not ported.
-`h5py` is imported where a file is opened.
+fixed-length streaming samples. Voxels come from the port's C++
+builder (data/native.py), as the JAX package's readers take theirs by
+default; `use_native_voxel_builder: false` selects the numpy voxelizer
+`events_to_voxel_np`, the reference's operations (the same bits for
+discrete bins, within 1e-9 for bilinear ones). `h5py` is imported where
+a file is opened.
 
 Samples are channels-last: frame (T,H,W,1), events (T,H,W,bins), flow
 (T,H,W,2).
@@ -20,6 +22,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 
 from ..ops.voxel import events_to_voxel_np
+from .native import events_to_voxel_native
 from .sources import DATA_SOURCES
 
 
@@ -49,6 +52,7 @@ class TestH5Dataset:
                                                    False)
         self.output_additional_evs = configs.get("output_additional_evs",
                                                  False)
+        self.use_native = configs.get("use_native_voxel_builder", True)
         with self._open() as f:
             self._read_index(f)
         self.samples = self._windows()
@@ -80,7 +84,9 @@ class TestH5Dataset:
         return len(self.samples)
 
     def _voxel(self, f, i0: int, i1: int) -> np.ndarray:
-        return events_to_voxel_np(
+        voxelize = (events_to_voxel_native if self.use_native
+                    else events_to_voxel_np)
+        return voxelize(
             f["events/ts"][i0:i1], f["events/xs"][i0:i1],
             f["events/ys"][i0:i1], f["events/ps"][i0:i1],
             num_bins=self.num_bins, height=self.H, width=self.W,

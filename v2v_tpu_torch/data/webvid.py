@@ -5,7 +5,9 @@ Host side of the train feed: the video list and its per-shot samples,
 OpenCV decode, the watermark-avoiding crop (keep_top_percentile), random
 resize, crop and flip, camera shake, the Markov pause chain and the
 degradation ablations. Items are raw uint8 frame stacks
-(`output="video"`); the train step simulates the events on the card.
+(`output="video"`), whose events the train step simulates on the card,
+or voxels and GT frames simulated on the host by the numpy emulator
+(`output="voxel"`, `VoxelOutput`; the reference's imgs_to_voxels).
 
 Every random draw of an item comes from its own `np.random.RandomState`,
 in the JAX package's order: seeded `fixed_seed + sample_idx` when the
@@ -20,10 +22,11 @@ imports on a machine without it.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..ops.voxel import esim_video_to_voxel_np
 from .sources import DATA_SOURCES
 
 
@@ -34,9 +37,86 @@ def bgr_to_gray(img_stack: np.ndarray) -> np.ndarray:
     return gray.astype(np.uint8)
 
 
+class VoxelOutput:
+    """WebVid's `output="voxel"` (v2v_tpu/data/webvid.py:328-374;
+    reference imgs_to_voxels, data/v2v_datasets.py:363-410) on an item's
+    decoded frames: the thresholds (the video's fixed pair, or theta ~
+    U(threshold_range) times a gap ~ U(1, max_thres_pos_neg_gap) on a
+    coin's side), the noise stds and their `scale_noise_strength`, then
+    the numpy emulator, the counts summed over `frames_per_bin`, and the
+    GT frames, every draw from `rng` in that order. `configs` is the
+    WebVid data config."""
+
+    def __init__(self, configs: Dict[str, Any]):
+        c = configs
+        self.L = c.get("sequence_length", 40)
+        self.num_bins = c.get("num_bins", 5)
+        self.frames_per_bin = c.get("frames_per_bin", 1)
+        self.frames_per_img = self.num_bins * self.frames_per_bin
+        self.threshold_range = c.get("threshold_range", [0.05, 2])
+        self.max_thres_pos_neg_gap = c.get("max_thres_pos_neg_gap", 1.5)
+        self.base_noise_std_range = c.get("base_noise_std_range", [0, 0.2])
+        self.hot_pixel_fraction_range = c.get("hot_pixel_fraction_range",
+                                              [0, 0.001])
+        self.hot_pixel_std_range = c.get("hot_pixel_std_range", [0, 0.2])
+        self.put_noise_external = c.get("put_noise_external", False)
+        self.scale_noise_strength = c.get("scale_noise_strength", False)
+        self.output_additional_frame = c.get("output_additional_frame",
+                                             False)
+        self.output_additional_evs = c.get("output_additional_evs", False)
+
+    def __call__(self, gray: np.ndarray, all_imgs: np.ndarray,
+                 rng: np.random.RandomState,
+                 thresholds: Optional[Tuple[float, float]] = None
+                 ) -> Dict[str, Any]:
+        """gray (N,H,W) uint8 and all_imgs (N,H,W,C) uint8, N = L *
+        frames_per_img + 1 (+ frames_per_img with output_additional_evs)
+        -> frame (T,H,W,C) float32 in [0, 1], events (G,H,W,num_bins)
+        float32, v2e_params."""
+        if thresholds is not None:
+            pos_thres, neg_thres = thresholds
+        else:
+            thres_1 = rng.uniform(*self.threshold_range)
+            thres_2 = thres_1 * rng.uniform(1, self.max_thres_pos_neg_gap)
+            if rng.rand() > 0.5:
+                pos_thres, neg_thres = thres_1, thres_2
+            else:
+                pos_thres, neg_thres = thres_2, thres_1
+        base_noise_std = rng.uniform(*self.base_noise_std_range)
+        hot_pixel_fraction = rng.uniform(*self.hot_pixel_fraction_range)
+        hot_pixel_std = rng.uniform(*self.hot_pixel_std_range)
+        if self.scale_noise_strength and not self.put_noise_external:
+            base_noise_std *= pos_thres
+            hot_pixel_std *= pos_thres
+        counts = esim_video_to_voxel_np(
+            gray.astype(np.float32), pos_thres, neg_thres, base_noise_std,
+            hot_pixel_fraction, hot_pixel_std, self.put_noise_external, rng)
+        h, w = gray.shape[1:]
+        voxels = counts.reshape(counts.shape[0] // self.frames_per_img,
+                                self.num_bins, self.frames_per_bin, h,
+                                w).sum(axis=2)
+        fpi = self.frames_per_img
+        use_imgs = all_imgs[fpi:] if self.output_additional_evs else all_imgs
+        if self.output_additional_frame:
+            frames = np.stack([use_imgs[i * fpi] for i in range(self.L + 1)])
+        else:
+            frames = np.stack([use_imgs[(i + 1) * fpi]
+                               for i in range(self.L)])
+        n_vox = self.L + (1 if self.output_additional_evs else 0)
+        return {
+            "frame": frames.astype(np.float32) / 255.0,
+            "events": voxels[:n_vox].transpose(0, 2, 3, 1).astype(
+                np.float32),
+            "v2e_params": {
+                "pos_thres": pos_thres, "neg_thres": neg_thres,
+                "base_noise_std": base_noise_std,
+                "hot_pixel_fraction": hot_pixel_fraction,
+                "hot_pixel_std": hot_pixel_std},
+        }
+
+
 class WebvidDataset:
-    """Reference WebvidDatasetV2 (data/v2v_datasets.py:95-361), for
-    `output="video"`."""
+    """Reference WebvidDatasetV2 (data/v2v_datasets.py:95-361)."""
 
     def __init__(self, dataset_path: str, configs: Dict[str, Any]):
         self.dataset_path = dataset_path
@@ -77,14 +157,9 @@ class WebvidDataset:
             raise ValueError(f"video_degrade {self.video_degrade!r}")
         self.degrade_ratio = c.get("degrade_ratio", 0)
         output = c.get("output", "video")
-        if output == "voxel":
-            raise NotImplementedError(
-                "WebvidDataset output='voxel' needs the numpy event "
-                "emulator (v2v_tpu/ops/voxel.py::esim_video_to_voxel_np), "
-                "not ported yet (ROADMAP P14); the train step simulates "
-                "from output='video'")
-        if output != "video":
+        if output not in ("video", "voxel"):
             raise ValueError(f"output {output!r}")
+        self.voxel_output = VoxelOutput(c) if output == "voxel" else None
         self.epoch_seed: Tuple[int, ...] = (0,)
 
         # video list: `subpath framecount [pos_thres neg_thres]`
@@ -291,11 +366,16 @@ class WebvidDataset:
         if self.use_fixed_thresholds:
             item["pos_thres"] = np.float32(pos_thres)
             item["neg_thres"] = np.float32(neg_thres)
+        gray = (all_imgs[..., 0] if self.color_mode == "gray"
+                else bgr_to_gray(all_imgs))
+        if self.voxel_output is not None:
+            item.update(self.voxel_output(
+                gray, all_imgs, rng, (pos_thres, neg_thres)
+                if self.use_fixed_thresholds else None))
+            return item
         # frames include the leading anchor frame, which the simulator's
         # first difference consumes
-        if self.color_mode == "gray":
-            item["video"] = all_imgs[..., 0].astype(np.uint8)
-        else:
-            item["video"] = bgr_to_gray(all_imgs)
+        item["video"] = gray.astype(np.uint8)
+        if self.color_mode != "gray":
             item["video_bgr"] = all_imgs.astype(np.uint8)
         return item

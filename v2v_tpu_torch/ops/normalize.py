@@ -1,7 +1,9 @@
 """Voxel normalizations (port of v2v_tpu/ops/normalize.py): the event
 visualization's normalize_nobias (reference model/train_utils.py:
-128-135), in numpy for the host-side previews, and the train and eval
-forward's normalize_batch_voxel, in torch."""
+128-135), in numpy for the host-side previews, and in torch the train
+and eval forward's normalize_batch_voxel and the legacy datasets'
+robust_norm and legacy_norm (utils/data_augmentation.py:134-210; their
+host twins are data/augmentation.py's RobustNorm and LegacyNorm)."""
 from __future__ import annotations
 
 import numpy as np
@@ -43,3 +45,27 @@ def normalize_batch_voxel(voxel: torch.Tensor) -> torch.Tensor:
     pos_max = srt[:, int(0.99 * n) - 1].clamp_min(1.0).view(b, 1, 1, 1, 1)
     neg_max = (-srt[:, int(0.01 * n) - 1]).clamp_min(1.0).view(b, 1, 1, 1, 1)
     return torch.where(voxel > 0, voxel / pos_max, voxel / neg_max)
+
+
+def robust_norm(x: torch.Tensor, low_perc: float = 0.0,
+                top_perc: float = 95.0) -> torch.Tensor:
+    """RobustNorm: clamp to the nearest-rank percentiles (torch.kthvalue
+    at 1 + round(q/100 * (n-1))), then (clamped - min) / (max + 1e-6):
+    the reference divides by the max, not the range. x comes back as it
+    is when both percentiles are 0 (the reference's early return)."""
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    lo = torch.kthvalue(flat, 1 + round(0.01 * low_perc * (n - 1))).values
+    hi = torch.kthvalue(flat, 1 + round(0.01 * top_perc * (n - 1))).values
+    normed = torch.minimum(torch.maximum(x, lo), hi)
+    out = (normed - normed.min()) / (normed.max() + 1e-6)
+    return torch.where((hi == 0) & (lo == 0), x, out)
+
+
+def legacy_norm(x: torch.Tensor) -> torch.Tensor:
+    """Zero mean and unit std over the nonzero entries; zeros stay."""
+    nonzero = x != 0
+    num = nonzero.sum().to(x.dtype).clamp(min=1.0)
+    mean = x.sum() / num
+    std = torch.sqrt(((x * x).sum() / num - mean * mean).clamp(min=0.0))
+    return torch.where(nonzero, (x - mean) / std.clamp(min=1e-9), x)

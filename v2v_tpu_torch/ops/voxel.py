@@ -9,8 +9,9 @@ gaussian noise per frame plus persistent hot-pixel noise.
 The fused CUDA simulator (K1) and its plain twin with the same Philox
 bits live in ops/voxel_cuda.py; this module holds the parameter
 sampling and the generator-driven path that `put_noise_external` keeps
-(the kernel implements potential noise only), and the host voxelizer of
-the h5 test path.
+(the kernel implements potential noise only), the numpy simulator of
+WebVid's `output="voxel"`, the host voxelizer of the h5 test path and
+its device twin for padded event tensors.
 """
 from __future__ import annotations
 
@@ -166,6 +167,45 @@ def simulate_sequence(frames: torch.Tensor, generator: torch.Generator,
     return voxels, fixed_params
 
 
+def esim_video_to_voxel_np(video: np.ndarray, pos_thres: float,
+                           neg_thres: float, base_noise_std: float = 0.0,
+                           hot_pixel_fraction: float = 0.0,
+                           hot_pixel_std: float = 0.0,
+                           put_noise_external: bool = False,
+                           rng=None) -> np.ndarray:
+    """(N, H, W) video -> (N-1, H, W) float64 signed counts on the host,
+    the numpy emulator of data/v2v_core_esim.py:26-69 (a copy of
+    v2v_tpu/ops/voxel.py::esim_video_to_voxel_np). Draws from `rng` (a
+    RandomState; default the global np.random) in the reference's order:
+    the potential, the hot mask, the hot values, then one base-noise field
+    a frame."""
+    rng = np.random if rng is None else rng
+    n, h, w = video.shape
+    potential = rng.rand(h, w) * (pos_thres + neg_thres) - neg_thres
+    video = reverse_gamma_correction(video)
+    log_imgs = np.log(0.001 + video / 255.0)
+    hot_mask = rng.rand(h, w) < hot_pixel_fraction
+    hot_noise = np.where(hot_mask, hot_pixel_std * rng.randn(h, w), 0)
+
+    out = []
+    for i in range(n - 1):
+        potential += log_imgs[i + 1] - log_imgs[i]
+        base_noise = base_noise_std * rng.randn(h, w)
+        if not put_noise_external:
+            potential += base_noise + hot_noise
+        pos_ev = np.where(potential >= pos_thres,
+                          np.floor_divide(potential, pos_thres), 0)
+        neg_ev = np.where(potential <= -neg_thres,
+                          np.floor_divide(-potential, neg_thres), 0)
+        potential -= pos_ev * pos_thres
+        potential += neg_ev * neg_thres
+        frame = pos_ev - neg_ev
+        if put_noise_external:
+            frame = frame + base_noise + hot_noise
+        out.append(frame)
+    return np.asarray(out)
+
+
 # ---------------------------------------------------------------------------
 # events -> voxel on the host (the h5 test path)
 # ---------------------------------------------------------------------------
@@ -203,3 +243,42 @@ def relative_us(ts: np.ndarray) -> np.ndarray:
     if ts.shape[0] == 0:
         return ts.astype(np.int64)
     return ((ts - ts[0]) * 1e6).astype(np.int64)
+
+
+def events_to_voxel(t_us: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                    ps: torch.Tensor, n_events, *, num_bins: int,
+                    height: int, width: int,
+                    interpolate_bins: bool = False) -> torch.Tensor:
+    """`events_to_voxel_np`'s math on padded event tensors, wherever they
+    lie: t_us (E,) microseconds since the first event (`relative_us` on
+    the host), xs/ys (E,) pixel coordinates, ps (E,) in {0, 1}, the first
+    `n_events` (an int or a 0-d tensor) valid. Returns (num_bins, H, W)
+    float32. The padded tail weighs 0 and is dropped before the scatter,
+    as an index out of the grid is (JAX's mode="drop"); CUDA adds the
+    bilinear weights in atomic order."""
+    e = t_us.shape[0]
+    dev = t_us.device
+    valid = torch.arange(e, device=dev) < n_events
+    pol = torch.where(valid, ps.to(torch.int32) * 2 - 1, 0).float()
+    t_us = t_us.float()
+    n = torch.as_tensor(n_events, device=dev)
+    t_last = t_us[(n - 1).clamp(min=0)]
+    flat_hw = ys.to(torch.int32) * width + xs.to(torch.int32)
+    size = num_bins * height * width
+    voxel = torch.zeros(size, dtype=torch.float32, device=dev)
+
+    def add(idx, vals):
+        keep = valid & (idx >= 0) & (idx < size)
+        voxel.index_add_(0, idx[keep].long(), vals[keep])
+
+    if not interpolate_bins:
+        t_per_bin = (t_last + 0.001) / num_bins
+        bin_idx = torch.floor(t_us / t_per_bin).to(torch.int32).clamp(
+            0, num_bins - 1)
+        add(bin_idx * (height * width) + flat_hw, pol)
+    else:
+        t_norm = t_us / (t_last + 0.0001) * (num_bins - 1)
+        for bi in range(num_bins):
+            add(bi * height * width + flat_hw,
+                torch.clamp(1.0 - torch.abs(t_norm - bi), min=0.0) * pol)
+    return voxel.reshape(num_bins, height, width)

@@ -7,8 +7,11 @@ train.py:176-222). A checkpoint is the reference's torch layout
 `{"state_dict", "epoch", "optimizer", "lr_scheduler"}` (train.py:146-151),
 with the optimizer's and the scheduler's `state_dict()` in place of the
 pickled objects. BatchNorm running statistics travel in `state_dict`.
-`load_params_only` also reads a bare state_dict. The JAX package's
-msgpack checkpoints are not read here.
+`load_params_only` also reads a bare state_dict, and the JAX package's
+`.msgpack` checkpoints (`{"params": variables, "opt_state", "meta"}`,
+v2v_tpu/training/checkpoint.py), whose variables it carries across with
+models/convert.py::jax_params_to_state_dict; their optimizer state does
+not map onto torch's, so training does not resume from one.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from ..models.convert import _strip_wrappers
+from ..models.convert import _strip_wrappers, jax_params_to_state_dict
+from ..utils.msgpack import restore
 
 
 def save_checkpoint(path: str, model: nn.Module,
@@ -70,13 +74,33 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer,
     return True
 
 
+def _numpy_leaves(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _numpy_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):       # bfloat16, exact in float32
+        return tree.float().numpy()
+    return tree
+
+
+def jax_checkpoint_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of a JAX package `.msgpack` checkpoint's variables
+    (params, and batch_stats where the model has them)."""
+    with open(path, "rb") as f:
+        state = restore(f.read())
+    return jax_params_to_state_dict(_numpy_leaves(state["params"]))
+
+
 def load_params_only(path: str, model: nn.Module) -> nn.Module:
     """Load a checkpoint's weights into `model` with strict=False
     semantics (test_e2vid.py:188): keys the model lacks are ignored,
     parameters the file lacks keep their values. `module.` (DDP) and
-    `_orig_mod.` (torch.compile) prefixes are stripped."""
-    saved = torch.load(path, map_location="cpu", weights_only=False)
-    sd = saved.get("state_dict", saved)
+    `_orig_mod.` (torch.compile) prefixes are stripped. A `.msgpack` path
+    is a JAX package checkpoint."""
+    if path.endswith(".msgpack"):
+        sd = jax_checkpoint_state_dict(path)
+    else:
+        saved = torch.load(path, map_location="cpu", weights_only=False)
+        sd = saved.get("state_dict", saved)
     sd = {_strip_wrappers(k): v for k, v in sd.items()}
     model.load_state_dict(sd, strict=False)
     return model
