@@ -149,6 +149,29 @@ Phases, one line each, any failure exits non-zero:
      for each voxel method (items/s on the host); one between_frames
      window through the flagship E2VID's eval step on the card, finite
      and equal twice from a reset state
+ 14i. the release kit ([release]): eval/release.py::validate_release
+     (the port's `cli validate_release`) on the card, fed configs as
+     dicts and synthetic sequences through its `inputs` seam (no PyYAML
+     or h5py there): e2vid++ with a .pth saved from the port's FlowNet
+     under the reference's key names (`module.`-prefixed, inside
+     {"state_dict": ...}) on two HQF-sized 180x240 sequences named as
+     HQF's boxes and desk converts strictly, scores, prints FAIL rows
+     against the e2vid+ table and returns 2; etnet and hyper, random-init
+     dry runs on two EVAID 720x1280 sequences of 3 frames, return 0, NOT
+     GATED, with K3 21 launches an ETNet frame and K4 one a HyperE2VID
+     frame; the .pth with one key renamed fails the strict conversion
+     (rc 1); each family's kit wall
+ 14j. the bench scripts through their main, at their defaults with 3
+     repeats: [bench-sim] (scripts/bench.py: synthesize_batch's clips/s
+     through K1 at (12, 201, 128, 128) uint8 against the host numpy
+     simulator), [bench-step] and [bench-step-hyper]
+     (scripts/bench_full_step.py --flops: the flagship's and HyperE2VID's
+     synchronized ms/step, the step's counted FLOPs and their share of the
+     dense bf16 peak; K1 once a step, K4 and its gradient 40 a step) and
+     [bench-eval] (scripts/bench_eval.py: ms/frame of six families at
+     180x240, 260x346 and 720x1280, each frame synchronized; K3 at
+     ETNet's 720p only, K4 once a HyperE2VID frame); each a median and a
+     spread over its repeats
  15. the K5 experiment: v2v_tpu_torch/scripts/exp_sim_interleave.py at
      its full workload (12 clips of 201 uint8 frames at 128x128, spp 1,
      2 and 4, 50 chained launches a run); K5's launch count must equal
@@ -625,6 +648,14 @@ LEGACY_SEQUENCES = 2          # sequence items timed a voxel method
 # Flip budget of two float32 log implementations (docs/PERF.md, "Round 4:
 # device-log flip budget"): |delta| <= 1 at a rate <= 5e-4.
 FLIP_RATE = 5e-4
+# [release]: the kit on two registry-named HQF-sized sequences (e2vid++,
+# its reference rows) and two EVAID-sized ones (etnet, hyper) of
+# RELEASE_FRAMES frames; HQF's events a frame at EVAID's density
+RELEASE_FRAMES = 3
+RELEASE_HQF_HW = (180, 240)
+RELEASE_HQF_EVENTS = 20_000
+# [bench-*]: the bench scripts at their defaults with the repeats cut
+BENCH_REPEATS = 3
 
 
 def _log(msg: str) -> None:
@@ -3501,6 +3532,196 @@ def phase_legacy_data(torch, dev, seed):
     return launches
 
 
+def _release_inputs(seed):
+    """[release]'s seam into the kit: a family -> (its config as a dict,
+    its test sequences in memory), as `phase_eval` feeds run_test (the
+    card's machine has no PyYAML or h5py). e2vid++: two HQF-sized
+    sequences named as HQF's `boxes` and `desk`, so the reference table
+    has rows for them; etnet and hyper: two EVAID 720x1280 ones named as
+    EVAID's `ball` and `bear`. No PNGs (no cv2 there)."""
+    from v2v_tpu_torch.data.interface import ConcatDataset
+    plans = {"e2vid++": (E2VIDPP_CONFIG, "hqf", ("boxes", "desk"),
+                         RELEASE_HQF_HW, RELEASE_HQF_EVENTS),
+             "etnet": (ETNET_CONFIG, "evaid", ("ball", "bear"), EVAL_HW,
+                       EVAL_EVENTS_PER_FRAME),
+             "hyper": (HYPER_EVAL_CONFIG, "evaid", ("ball", "bear"),
+                       EVAL_HW, EVAL_EVENTS_PER_FRAME)}
+
+    def inputs(family):
+        if family not in plans:
+            return None
+        config, ds, names, hw, events = plans[family]
+        cfg = json.loads(json.dumps(config))
+        cfg.pop("test_output_dir")
+        entry = next(e for e in cfg["test_stage"]["test"]
+                     if e["dataset_name"] == ds)
+        cfg["test_stage"]["test"] = [entry]
+        return cfg, ConcatDataset([
+            _SyntheticSequence(name, seed + 60 + i, RELEASE_FRAMES, hw,
+                               events, entry)
+            for i, name in enumerate(names)])
+
+    return inputs
+
+
+def _kit(torch, tag, **kw):
+    """eval/release.py::validate_release(**kw) on the card with its output
+    kept; returns (rc, output, wall s)."""
+    import contextlib
+    import io
+    from v2v_tpu_torch.eval.release import validate_release
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        rc = validate_release(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _log(f"[{tag}] validate_release({', '.join(sorted(kw))}) -> rc {rc} in "
+         f"{wall:.1f} s")
+    return rc, buf.getvalue(), wall
+
+
+def phase_release(torch, dev, seed):
+    """[release]: the release kit (eval/release.py, the port's
+    `cli validate_release`) on the card, fed through its `inputs` seam
+    (`_release_inputs`). e2vid++ with a .pth saved from the port's
+    FlowNet under the reference's key names, `module.`-prefixed, inside
+    {"state_dict": ...}: it must convert strictly, score, print FAIL rows
+    against the e2vid+ table (random weights) and return 2. etnet and
+    hyper, random-init dry runs: rc 0, NOT GATED; K3 21 launches an ETNet
+    frame, K4 one a HyperE2VID frame. The same .pth with one key renamed
+    must fail the strict conversion (rc 1: nothing ran). Returns the
+    launches and each family's wall (s), the setup column of
+    `--budget`."""
+    from v2v_tpu_torch.config import instantiate_from_config
+    from v2v_tpu_torch.models.init import materialize
+    root = tempfile.mkdtemp(prefix="chip_smoke_release_")
+    assets = os.path.join(root, "assets")
+    os.makedirs(os.path.join(assets, "checkpoints"))
+    model = materialize(lambda: instantiate_from_config(E2VIDPP_MODEL),
+                        torch.device("cpu"),
+                        torch.Generator().manual_seed(seed))
+    sd = {f"module.{k}": v for k, v in model.state_dict().items()}
+    torch.save({"state_dict": sd},
+               os.path.join(assets, "checkpoints", "e2vid++.pth"))
+    inputs = _release_inputs(seed)
+    walls = {}
+    _zero_launches()
+    rc, text, walls["e2vid++"] = _kit(
+        torch, "release", assets=assets, out=os.path.join(root, "out1"),
+        families=["e2vid++"], inputs=inputs)
+    n_fail = sum(line.rstrip().endswith("FAIL") for line in text.splitlines())
+    _log(f"[release] e2vid++: {n_fail} FAIL rows against the e2vid+ table")
+    _require(rc == 2 and "converted" in text and n_fail > 0
+             and "HQF/boxes/MSE" in text and "HQF/desk/SSIM" in text,
+             "release: e2vid++ did not convert, score and fail the table")
+    for family in ("etnet", "hyper"):
+        rc, text, walls[family] = _kit(
+            torch, "release", assets=assets,
+            out=os.path.join(root, f"out_{family}"), families=[family],
+            allow_random_init=True, inputs=inputs)
+        _require(rc == 0 and "RANDOM INIT dry run" in text
+                 and f"{family}: NOT GATED (random init)" in text,
+                 f"release: the {family} dry run")
+    launches = _read_launches()
+    n_frames = 2 * RELEASE_FRAMES
+    _require(launches["attention"] == K3_PER_FRAME * n_frames
+             and launches["dynamic_shift_sum"] == n_frames
+             and not launches["simulate_batch"],
+             f"release: launches {launches}, want K3 {K3_PER_FRAME} an "
+             f"ETNet frame and K4 one a HyperE2VID frame over {n_frames}")
+    bad = os.path.join(root, "bad_assets")
+    os.makedirs(os.path.join(bad, "checkpoints"))
+    key = next(k for k in sd if k.endswith(".weight"))
+    sd[key + "_renamed"] = sd.pop(key)
+    torch.save({"state_dict": sd},
+               os.path.join(bad, "checkpoints", "e2vid++.pth"))
+    rc, text, _ = _kit(torch, "release", assets=bad,
+                       out=os.path.join(root, "out_bad"),
+                       families=["e2vid++"], inputs=inputs)
+    _require(rc == 1 and "CONVERSION FAILED" in text
+             and key[len("module."):] in text,
+             f"release: a .pth with {key} renamed was not refused")
+    _log(f"[release] a .pth with {key!r} renamed fails the strict "
+         f"conversion (rc 1); kit wall on the card: " + ", ".join(
+             f"{f} {w:.1f} s" for f, w in walls.items()) +
+         f"; launches {launches}")
+    return launches, walls
+
+
+def _bench_json(torch, tag, main, argv):
+    """A bench script's main(argv) on the card, its output kept; returns
+    its last JSON line, the launches and the command's wall (s)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        rc = main(argv)
+    wall = time.perf_counter() - t0
+    _require(rc == 0, f"{tag}: main({argv}) returned {rc}")
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return result, _read_launches(), wall
+
+
+def phase_bench(torch, dev):
+    """[bench-sim], [bench-step], [bench-eval]: the port's bench scripts
+    (v2v_tpu_torch/scripts/bench*.py) through their main on the card, at
+    their defaults with BENCH_REPEATS repeats; `bench_full_step` for the
+    flagship and for HyperE2VID, with --flops. Each prints a median and a
+    spread over synchronized repeats; the kernels each must launch are
+    counted. Returns the launches by path and bench_eval's rows."""
+    from v2v_tpu_torch.scripts import bench, bench_eval, bench_full_step
+    paths = {}
+    rep = ["--repeats", str(BENCH_REPEATS)]
+    sim, paths["bench-sim"], wall = _bench_json(torch, "bench-sim",
+                                                bench.main, rep)
+    want = (BENCH_REPEATS + 1) * sim["iters"]
+    _log(f"[bench-sim] {sim['value']:.1f} clips/s (spread "
+         f"{sim['spread'][0]:.1f}-{sim['spread'][1]:.1f}) against the host "
+         f"numpy simulator's {sim['host_numpy_clips_per_sec']:.3f}: "
+         f"{sim['vs_host_numpy']:.0f}x; {wall:.1f} s; K1 "
+         f"{paths['bench-sim']['simulate_batch']} launches (want {want})")
+    _require(paths["bench-sim"]["simulate_batch"] == want,
+             "bench-sim: K1 launch count")
+    for config, tag in (("flagship", "bench-step"),
+                        ("hyper", "bench-step-hyper")):
+        step, paths[tag], wall = _bench_json(
+            torch, tag, bench_full_step.main,
+            ["--config", config, "--flops"] + rep)
+        n = 1 + BENCH_REPEATS * step["steps"]
+        k4 = step["T"] * n if config == "hyper" else 0
+        _log(f"[{tag}] {step['ms_per_step']:.1f} ms/step (spread "
+             f"{step['spread'][0]:.1f}-{step['spread'][1]:.1f}, "
+             f"{BENCH_REPEATS} x {step['steps']} steps), "
+             f"{step['flop_per_step'] / 1e12:.3f} TFLOP/step, "
+             f"{step['flop_per_s'] / 1e12:.1f} TFLOP/s = "
+             f"{step['bf16_peak_share']:.4f} of the dense bf16 peak "
+             f"({step['card']}); {wall:.1f} s; launches {paths[tag]}")
+        _require(math.isfinite(step["last_loss"]), f"{tag}: loss")
+        _require(paths[tag]["simulate_batch"] == n
+                 and paths[tag]["dynamic_shift_sum"] == k4
+                 and paths[tag]["dynamic_shift_sum_backward"] == k4,
+                 f"{tag}: launches {paths[tag]}, want K1 {n}, K4 {k4}")
+    ev, paths["bench-eval"], wall = _bench_json(torch, "bench-eval",
+                                                bench_eval.main, rep)
+    per_stream = ev["rows"][0]["frames"] * BENCH_REPEATS + 2
+    k3_streams = sum(r["family"] == "etnet" and r["hw"][0] * r["hw"][1]
+                     // 64 > 4096 for r in ev["rows"])
+    want = {"attention": K3_PER_FRAME * per_stream * k3_streams,
+            "dynamic_shift_sum": per_stream * sum(
+                r["family"] == "hyper" for r in ev["rows"])}
+    _log(f"[bench-eval] {len(ev['rows'])} rows in {wall:.1f} s; launches "
+         f"{paths['bench-eval']} (want {want})")
+    _require(all(paths["bench-eval"][k] == v for k, v in want.items())
+             and len(ev["rows"]) == 18
+             and all(math.isfinite(r["ms_per_frame"]) for r in ev["rows"]),
+             "bench-eval: rows or launches")
+    return paths, ev["rows"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3603,6 +3824,9 @@ def main(argv=None) -> int:
         paths["webvid-voxel"] = phase_webvid_voxel(torch, dev, args.seed,
                                                    args.steps)
         paths["legacy-data"] = phase_legacy_data(torch, dev, args.seed)
+        paths["release"], _ = phase_release(torch, dev, args.seed)
+        bench_paths, _ = phase_bench(torch, dev)
+        paths.update(bench_paths)
         paths["sim-interleave"] = phase_sim_interleave(torch, dev)
     except Exception as e:   # every phase failure ends the run non-zero
         import traceback

@@ -30,6 +30,15 @@ from ..ops.voxel import esim_video_to_voxel_np
 from .sources import DATA_SOURCES
 
 
+def log_uniform(minval: float, maxval: float) -> float:
+    """A draw uniform in log(x + 1e-3) on [minval, maxval], from the
+    global numpy stream, as the JAX package's and the reference's
+    (data/v2v_datasets.py:12-17)."""
+    eps = 1e-3
+    logval = np.random.uniform(np.log(minval + eps), np.log(maxval + eps))
+    return float(np.exp(logval) - eps)
+
+
 def bgr_to_gray(img_stack: np.ndarray) -> np.ndarray:
     """(N,H,W,3) BGR -> (N,H,W) gray, BT.601 with the reference's channel
     order (data/v2v_datasets.py:19-22)."""

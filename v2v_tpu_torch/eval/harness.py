@@ -171,14 +171,16 @@ def run_test(iface: ModelInterface, configs: Dict[str, Any],
 
 def run_single_test(checkpoint_path: Optional[str], config: Dict[str, Any],
                     max_batches: Optional[int] = None, root: str = ".",
-                    device=None) -> Dict[str, float]:
+                    device=None, dataset=None) -> Dict[str, float]:
     """(test_e2vid.py:177-194). The port builds a model without a shape,
-    so no test item is probed first (NerNet's included)."""
+    so no test item is probed first (NerNet's included). `dataset` goes
+    to run_test."""
     iface = ModelInterface(config["module"], device)
     if checkpoint_path is not None:
         load_params_only(checkpoint_path, iface.model)
         print("Loaded checkpoint:", checkpoint_path)
-    return run_test(iface, config, max_batches=max_batches, root=root)
+    return run_test(iface, config, max_batches=max_batches, root=root,
+                    dataset=dataset)
 
 
 def main(config: Dict[str, Any], test_all_pths: bool = False,

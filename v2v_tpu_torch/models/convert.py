@@ -1,4 +1,6 @@
-"""Flax parameter trees (as numpy) -> torch state_dicts.
+"""Flax parameter trees (as numpy) -> torch state_dicts, and the strict
+load of a torch checkpoint into a port model (`convert_checkpoint`, the
+counterpart of v2v_tpu/models/convert.py::validate_against).
 
 The inverse of v2v_tpu/models/convert.py::torch_state_dict_to_flax for
 the modules this package ports (the recurrent UNet zoo, EVFlowNet,
@@ -146,3 +148,44 @@ def jax_params_to_state_dict(flax_params: Dict[str, Any]
         if f"{block}.downsample.0.weight" in sd:
             sd[f"{block}.downsample.1.{leaf}"] = sd[key]
     return sd
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint's state_dict: the file's `state_dict` entry, or
+    the file itself (v2v_tpu/models/convert.py:208), with the `module.`
+    and `_orig_mod.` prefixes stripped."""
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    sd = saved.get("state_dict", saved)
+    return {_strip_wrappers(k): v for k, v in sd.items()}
+
+
+def validate_against(model: torch.nn.Module,
+                     state_dict: Dict[str, torch.Tensor],
+                     strict: bool = True) -> Dict[str, torch.Tensor]:
+    """Check `state_dict` against `model`'s keys and shapes and return a
+    full state_dict for it. `strict` raises on a missing key, an
+    unexpected key or a shape mismatch; otherwise the unexpected keys are
+    dropped and the missing or mismatched ones keep the model's values
+    (load_state_dict(strict=False), test_e2vid.py:188)."""
+    template = model.state_dict()
+    missing = [k for k in template if k not in state_dict]
+    unexpected = [k for k in state_dict if k not in template]
+    mismatched = [k for k in template if k in state_dict and tuple(
+        state_dict[k].shape) != tuple(template[k].shape)]
+    if strict and (missing or unexpected or mismatched):
+        raise ValueError(
+            f"checkpoint does not match {type(model).__name__}: "
+            f"missing={missing[:5]} ({len(missing)} total), "
+            f"unexpected={unexpected[:5]} ({len(unexpected)} total), "
+            f"shape-mismatch={mismatched[:5]} ({len(mismatched)} total)")
+    return {k: v if k in missing or k in mismatched else state_dict[k]
+            for k, v in template.items()}
+
+
+def convert_checkpoint(path: str, model: torch.nn.Module,
+                       strict: bool = True) -> torch.nn.Module:
+    """Load the torch checkpoint at `path` into `model` through
+    `validate_against`; returns the model."""
+    model.load_state_dict(validate_against(
+        model, load_torch_checkpoint(path), strict))
+    return model

@@ -21,7 +21,8 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from ..models.convert import _strip_wrappers, jax_params_to_state_dict
+from ..models.convert import (_strip_wrappers, jax_params_to_state_dict,
+                              load_torch_checkpoint)
 from ..utils.msgpack import restore
 
 
@@ -96,12 +97,8 @@ def load_params_only(path: str, model: nn.Module) -> nn.Module:
     parameters the file lacks keep their values. `module.` (DDP) and
     `_orig_mod.` (torch.compile) prefixes are stripped. A `.msgpack` path
     is a JAX package checkpoint."""
-    if path.endswith(".msgpack"):
-        sd = jax_checkpoint_state_dict(path)
-    else:
-        saved = torch.load(path, map_location="cpu", weights_only=False)
-        sd = saved.get("state_dict", saved)
-    sd = {_strip_wrappers(k): v for k, v in sd.items()}
+    sd = (jax_checkpoint_state_dict(path) if path.endswith(".msgpack")
+          else load_torch_checkpoint(path))
     model.load_state_dict(sd, strict=False)
     return model
 
