@@ -172,6 +172,26 @@ Phases, one line each, any failure exits non-zero:
      180x240, 260x346 and 720x1280, each frame synchronized; K3 at
      ETNet's 720p only, K4 once a HyperE2VID frame); each a median and a
      spread over its repeats
+ 14k. training at scale: [soak] (scripts/soak_train.py: the flagship
+     at full width, B=12, T=40, through the train driver in a child
+     process on a cut schedule, 3 + 2 epochs of 6 steps of stand-in
+     clips, SIGKILLed mid-epoch 2 and resumed in a fresh process; the
+     losses finite and falling, the resume at epoch 2, >= 3 LRs, the
+     probe's MSE falling over the checkpoints, K1 once a step summed over
+     both processes; the child's host RSS and the allocator's reserved
+     memory printed); [rss] (scripts/diag_rss.py: the loader, the pinned
+     transfer, the step and the three together, each in its own process
+     (the four at once) at the flagship's shape for 4 iterations, their
+     RSS, heap and reserved series; K1 once a step); [floor]
+     (scripts/roofline_floor.py for the flagship and HyperE2VID: the
+     step's calls recorded, the top 12 replayed alone in CUDA graphs,
+     the floor beside the step's measured ms/step and the gap, K3's,
+     K4's and its gradient's bound x launches apart; K1 once a step, K4
+     and its gradient 40 a step);
+     [close-floor] (scripts/close_floor.py: ETNet, and ERAFT with T cut
+     from 40 to 8: the step, the step with a zeros teacher, the
+     simulator, the model's constituents forward and backward, the
+     residual and the fill, which sum to the step)
  15. the K5 experiment: v2v_tpu_torch/scripts/exp_sim_interleave.py at
      its full workload (12 clips of 201 uint8 frames at 128x128, spp 1,
      2 and 4, 50 chained launches a run); K5's launch count must equal
@@ -202,6 +222,16 @@ import subprocess
 import sys
 import tempfile
 import time
+
+try:
+    # the seeded stand-in data (v2v_tpu_torch/data/synthetic.py): WebVid
+    # clips and h5 test sequences, which the card's machine cannot read
+    from v2v_tpu_torch.data.synthetic import SYNTHETIC_FLOW
+    from v2v_tpu_torch.data.synthetic import DriftingClips as _DriftingClips
+    from v2v_tpu_torch.data.synthetic import \
+        SyntheticSequence as _SyntheticSequence
+except ImportError:     # the script alone: main() exits 2
+    SYNTHETIC_FLOW = _DriftingClips = _SyntheticSequence = None
 
 # The flagship config's `module` and `train_stages[0]` sections
 # (configs/train_v2v_e2vid_10k.yaml; the card's machine has no PyYAML).
@@ -528,12 +558,9 @@ ZOO_REFERENCE = {
 }
 # [flow-eval]: MVSEC's DAVIS346 frame (EVAL_FRAMES frames a sequence,
 # the config's sequence_length of 80 cut as the other evals' are);
-# events a frame, of MVSEC's order (~1e4-1e5 between flow timestamps);
-# the stored GT flow of the synthetic sequences, px a frame (their
-# texture drifts 2 px left and 1 px up a frame, but where its shift wraps)
+# events a frame, of MVSEC's order (~1e4-1e5 between flow timestamps)
 FLOW_EVAL_HW = (260, 346)
 FLOW_EVAL_EVENTS_PER_FRAME = 20_000
-SYNTHETIC_FLOW = (-2.0, -1.0)
 # ETNet's dropout rate (the reference fixes it at 0.1) and the band the
 # kept share of each of a step's mask draws must fall in: a draw of the
 # tail covers B*T = 240 frames, at least 240 * 256 tokens * 256 = 1.6e7
@@ -1776,54 +1803,6 @@ def phase_slice(torch, dev, seed, steps, profile=False, module=None,
     return launches, ms
 
 
-class _DriftingClips:
-    """A seeded stand-in for the WebVid train set, in WebvidDataset's
-    output="video" item contract: {"video": uint8 (N, H, W),
-    "data_source_idx": int64}, N = sequence_length * num_bins *
-    frames_per_bin + 1, plus num_bins * frames_per_bin leading frames
-    where the config sets output_additional_evs, and H = W = crop_size of
-    the data config. Each clip
-    is a random texture drifting by a random sub-pixel velocity a frame,
-    with slow brightness changes, made in numpy on the host from `seed`
-    and the index: the host twin of _drifting_video. It stands in for mp4
-    decode, which the card's machine cannot run (no cv2)."""
-
-    def __init__(self, data_cfg, seed, n_items):
-        self.data_cfg, self.seed, self.n_items = data_cfg, seed, n_items
-
-    def __len__(self):
-        return self.n_items
-
-    def __getitem__(self, idx):
-        import numpy as np
-        from v2v_tpu_torch.data.sources import DATA_SOURCES
-        c = self.data_cfg
-        fpi = c["num_bins"] * c.get("frames_per_bin", 1)
-        n = (c["sequence_length"] + bool(c.get("output_additional_evs"))) \
-            * fpi + 1
-        h = w = c["crop_size"]
-        rng = np.random.default_rng((self.seed, idx))
-        tex = np.pad(rng.random((2 * h, 2 * w)), 1, mode="edge")
-        tex = sum(tex[i:i + 2 * h, j:j + 2 * w]
-                  for i in range(3) for j in range(3)) / 9.0
-        tex = np.clip((tex - 0.5) * 3.0 + 0.5, 0.0, 1.0) * 255.0
-        vel = (rng.random(2) - 0.5) * 2.0
-        pad = int(np.ceil(n * np.abs(vel).max())) + 2
-        tex = np.pad(tex, pad, mode="reflect")
-        frames = np.empty((n, h, w), np.float32)
-        for t in range(n):
-            oy, ox = t * vel + (h / 2 + pad, w / 2 + pad)
-            iy, ix = int(np.floor(oy)), int(np.floor(ox))
-            fy, fx = oy - iy, ox - ix
-            a = tex[iy:iy + h + 1, ix:ix + w + 1]
-            f = ((1 - fy) * ((1 - fx) * a[:-1, :-1] + fx * a[:-1, 1:])
-                 + fy * ((1 - fx) * a[1:, :-1] + fx * a[1:, 1:]))
-            frames[t] = f * (1.0 + 0.3 * np.sin(t / 17.0 + idx))
-        return {"data_source_idx": np.int64(DATA_SOURCES.index(
-                    c["data_source_name"])),
-                "video": np.clip(frames, 0, 255).round().astype(np.uint8)}
-
-
 class _ESIMStandIn:
     """A seeded stand-in for an ESIM cache set, in ESIMH5Dataset's item
     contract: a window of sequence_length frames of the cache's layout
@@ -2294,76 +2273,6 @@ def phase_ddp(torch, dev, seed, steps=2, module=None, stage=None,
     _require(serr <= 1e-2, f"{tag}: BatchNorm running statistics differ")
     _require(not dist.is_initialized(), f"{tag}: the group outlived the "
                                         f"phase")
-
-
-class _SyntheticSequence:
-    """One sequence of `frames` frames held in memory, in the sample
-    contract of TestH5Dataset (frame (T,H,W,1) in [0,255], or [0,1] where
-    the data config's image_range is 1, events
-    (T,H,W,bins)): a drifting texture as GT and uniform random events at
-    a fixed rate, both from numpy with `seed`, voxelized on the host with
-    the data config's settings by the builder it selects, as the port's
-    TestH5Dataset does: the C++ builder unless use_native_voxel_builder
-    is false, then events_to_voxel_np. Where
-    the config sets output_additional_frame, T+1 frames lead by the one
-    before the first events; where it sets output_additional_evs, T+1
-    event groups lead by the one before. With `flow`, the layout of
-    TestH5FlowDataset: a stored GT flow (T,H,W,2) of SYNTHETIC_FLOW at
-    every pixel. It stands in for an h5 file: the card's machine has no
-    h5py."""
-
-    def __init__(self, name, seed, frames, hw, events_per_frame, data_cfg,
-                 flow=False):
-        self.name, self.seed, self.frames, self.hw = name, seed, frames, hw
-        self.events_per_frame = events_per_frame
-        self.data_cfg = data_cfg
-        self.flow = flow
-
-    def __len__(self):
-        return 1
-
-    def __getitem__(self, idx):
-        import numpy as np
-        from v2v_tpu_torch.data.native import events_to_voxel_native
-        from v2v_tpu_torch.data.sources import DATA_SOURCES
-        from v2v_tpu_torch.ops.voxel import events_to_voxel_np
-        voxelize = (events_to_voxel_native if self.data_cfg.get(
-            "use_native_voxel_builder", True) else events_to_voxel_np)
-        rng = np.random.default_rng(self.seed)
-        h, w = self.hw
-        cell = 16
-        coarse = rng.random((h // cell + 2, w // cell + 2)) * 255.0
-        texture = np.kron(coarse, np.ones((cell, cell)))
-        extra = 1 if self.data_cfg.get("output_additional_frame") else 0
-        extra_evs = 1 if self.data_cfg.get("output_additional_evs") else 0
-        frames, voxels = [], []
-        for t in range(self.frames + extra):
-            dy, dx = t % cell, (2 * t) % cell
-            frames.append(texture[dy:dy + h, dx:dx + w])
-        for t in range(-extra_evs, self.frames):
-            n = self.events_per_frame
-            ts = np.sort(rng.uniform(t / 30.0, (t + 1) / 30.0, n))
-            voxels.append(voxelize(
-                ts, rng.integers(0, w, n), rng.integers(0, h, n),
-                rng.integers(0, 2, n).astype(np.uint8),
-                num_bins=self.data_cfg["num_bins"], height=h, width=w,
-                interpolate_bins=self.data_cfg["interpolate_bins"]))
-        scale = 255.0 if self.data_cfg.get("image_range", 255) == 1 else 1.0
-        item = {
-            "frame": (np.stack(frames)[..., None] / scale).astype(np.float32),
-            "events": np.stack(voxels).transpose(0, 2, 3, 1).astype(
-                np.float32),
-            "data_source_idx": np.int64(DATA_SOURCES.index(
-                self.data_cfg["dataset_name"])),
-            "sequence_name": self.name,
-            "frame_idx": np.arange(self.frames, dtype=np.int64),
-        }
-        if self.flow:
-            item["flow"] = np.broadcast_to(np.asarray(
-                SYNTHETIC_FLOW, np.float32), (self.frames, h, w, 2)).copy()
-        else:
-            item["real_begin_idx"] = np.zeros((self.frames,), np.int64)
-        return item
 
 
 def _write_memmap(root, seed, hw, frames, n_events, duration=2.0):
@@ -3722,6 +3631,154 @@ def phase_bench(torch, dev):
     return paths, ev["rows"]
 
 
+# [soak]: the flagship shape on a cut schedule (the soak's stages of
+# 6 and 4 epochs of 210 steps cut to 3 and 2 of SOAK_STEPS), killed
+# mid-epoch SOAK_KILL_AFTER and resumed; [rss]: diag_rss's four phases
+# for RSS_ITERS iterations; [floor]: the flagship's and HyperE2VID's
+# floors over the top FLOOR_TOP calls; [close-floor]: ETNet at its shape,
+# ERAFT with T cut from 40 to CLOSE_ERAFT_T (its step is the host's:
+# 3.5-4.4 s at T = 40)
+SOAK_STAGE_EPOCHS = (3, 2)
+SOAK_STEPS = 6
+SOAK_KILL_AFTER = 2
+RSS_ITERS = 4
+FLOOR_TOP = 12
+CLOSE_ERAFT_T = 8
+
+
+def _no_launches() -> dict:
+    return {name: 0 for name in _kernels()}
+
+
+def phase_soak(torch, dev):
+    """[soak]: scripts/soak_train.py at the flagship's full width, B=12,
+    T=40, 128x128, on a cut schedule: two stages of SOAK_STAGE_EPOCHS
+    epochs of SOAK_STEPS steps of stand-in clips, a SIGKILL mid-epoch
+    SOAK_KILL_AFTER and the resume in a fresh process. The script checks
+    the losses, the resume, the LRs, the probe's MSE and K1 once a step
+    (summed over both processes, from their own counts); this phase
+    prints the RSS and reserved-memory series. Returns K1's launches."""
+    from v2v_tpu_torch.scripts import soak_train
+    root = tempfile.mkdtemp(prefix="chip_smoke_soak_")
+    t0 = time.perf_counter()
+    try:
+        s = soak_train.run(root, stage_epochs=SOAK_STAGE_EPOCHS,
+                           steps_per_epoch=SOAK_STEPS,
+                           kill_after=SOAK_KILL_AFTER, poll_s=0.5,
+                           device=dev, timeout_s=600)
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    _log(f"[soak] {s['total_steps']} steps over {s['epochs']} epochs, "
+         f"resumed at epoch {s['resume_epoch']} after the kill; losses by "
+         f"epoch {[round(x, 4) for _, x in s['loss_by_epoch']]} (first 3 "
+         f"{s['loss_first3_mean']:.4f} -> last 3 "
+         f"{s['loss_last3_mean']:.4f}); lr by epoch {s['lr_by_epoch']}; "
+         f"probe MSE {[round(m, 5) for _, m, _ in s['quality_by_epoch']]}")
+    _log(f"[soak] host RSS (s, MB) {s['rss_series']}; peak "
+         f"{s['rss_mb_peak']} MB, first-quarter peak "
+         f"{s['rss_mb_first_quarter_peak']} MB; reserved MB by epoch "
+         f"{s['reserved_mb_by_epoch']}; allocated MB by epoch "
+         f"{s['allocated_mb_by_epoch']}; K1 {s['k1_launches']} launches in "
+         f"{s['total_steps']} steps; epoch s {s['epoch_seconds']}; "
+         f"{wall:.1f} s")
+    return dict(_no_launches(), simulate_batch=s["k1_launches"])
+
+
+def phase_rss(torch, dev):
+    """[rss]: scripts/diag_rss.py's four phases (loader, transfer, step,
+    full) at the flagship's shape for RSS_ITERS iterations each, each in
+    a fresh process, the four at once (their RSS stays each process's;
+    one after another they took ~2 minutes, most of it starting
+    processes); each prints its RSS, heap and reserved series. Returns
+    K1's launches, counted in the step and full processes."""
+    from v2v_tpu_torch.scripts import diag_rss
+    root = tempfile.mkdtemp(prefix="chip_smoke_rss_")
+    t0 = time.perf_counter()
+    try:
+        res = diag_rss.run(list(diag_rss.PHASE_NAMES), RSS_ITERS, 2, 4,
+                           root, device=str(dev), concurrent=True)
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    k1 = sum(res[p].get("k1_launches", 0) for p in ("step", "full"))
+    _require(k1 == 2 * RSS_ITERS, f"rss: K1 launched {k1} times in "
+                                  f"{2 * RSS_ITERS} steps")
+    _log(f"[rss] growth MB: " + ", ".join(
+        f"{p} {r['last_mb'] - r['first_mb']:+.0f} (heap "
+        f"{r['python_heap_mb']:.0f}, after trim {r['trimmed_mb']:.0f}; "
+        f"{r['process_s']:.1f} s)" for p, r in res.items())
+        + f"; K1 {k1} launches; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(_no_launches(), simulate_batch=k1)
+
+
+def phase_floor(torch, dev):
+    """[floor]: scripts/roofline_floor.py for the flagship and HyperE2VID:
+    the step's calls recorded, the top FLOOR_TOP replayed alone in CUDA
+    graphs, the floor beside the step's measured ms/step and the gap; K3,
+    K4 and its gradient's bound x launches apart. Returns the launches by
+    path."""
+    from v2v_tpu_torch.scripts import roofline_floor
+    paths = {}
+    for config in ("flagship", "hyper"):
+        _zero_launches()
+        t0 = time.perf_counter()
+        out = roofline_floor.run(config, dev, FLOOR_TOP, steps=2, repeats=1)
+        torch.cuda.synchronize()
+        paths[f"floor-{config}"] = launches = _read_launches()
+        steps = 1 + 2
+        k4 = out["T"] * steps if config == "hyper" else 0
+        _require(out["floor_ms"] > 0 and math.isfinite(out["gap"]),
+                 f"floor {config}: floor {out['floor_ms']} ms, gap "
+                 f"{out['gap']}")
+        _require(launches["simulate_batch"] == steps
+                 and launches["dynamic_shift_sum"] == k4
+                 and launches["dynamic_shift_sum_backward"] == k4
+                 and out["hidden_launches"]["dynamic_shift_sum"] == k4 // 3,
+                 f"floor {config}: launches {launches}, hidden "
+                 f"{out['hidden_launches']}")
+        _log(f"[floor] {config}: FLOOR {out['floor_ms']:.2f} ms/step, "
+             f"measured {out['measured_ms_per_step']:.1f}, gap "
+             f"{out['gap']:.3f}; {out['flop_per_step'] / 1e12:.3f} TFLOP, "
+             f"top {out['top']} {out['top_share'] * 100:.1f}%; calibration "
+             f"{(out['calibration_flop_per_s'] or 0) / 1e12:.1f} TF/s; "
+             f"hidden bound ms {out['hidden_bound_ms']}; {out['card']}; "
+             f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return paths
+
+
+def phase_close_floor(torch, dev):
+    """[close-floor]: scripts/close_floor.py for ETNet at its shape and
+    ERAFT at T = CLOSE_ERAFT_T: S_all, S_zeros, the simulator, the
+    constituents, the residual and the fill. Returns the launches."""
+    from v2v_tpu_torch.scripts import close_floor
+    paths = {}
+    for config, cut in (("etnet", {}),
+                        ("eraft", {"sequence_length": CLOSE_ERAFT_T})):
+        _zero_launches()
+        t0 = time.perf_counter()
+        out = close_floor.run(config, dev, steps=2, iters=3, **cut)
+        torch.cuda.synchronize()
+        paths[f"close-floor-{config}"] = _read_launches()
+        parts = (out["teacher_ms"] + out["sim_ms"] + out["constituents_ms"]
+                 + out["residual_ms"])
+        _require(abs(parts - out["s_all_ms"]) <= 1e-6 * out["s_all_ms"]
+                 and out["constituents_ms"] > 0 and out["sim_ms"] > 0,
+                 f"close-floor {config}: {out}")
+        _require(paths[f"close-floor-{config}"]["simulate_batch"] > 0,
+                 f"close-floor {config}: K1 not launched")
+        _log(f"[close-floor] {config} (B={out['batch']}, T={out['T']}): "
+             f"S_all {out['s_all_ms']:.1f} ms, S_zeros "
+             f"{out['s_zeros_ms']:.1f}, teacher {out['teacher_ms']:.1f}, sim "
+             f"{out['sim_ms']:.3f}, scan {out['scan_ms']:.1f}, P "
+             f"{out['constituents_ms']:.1f}, residual "
+             f"{out['residual_ms']:.1f}, fill {out['fill']:.3f}; "
+             f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3827,6 +3884,10 @@ def main(argv=None) -> int:
         paths["release"], _ = phase_release(torch, dev, args.seed)
         bench_paths, _ = phase_bench(torch, dev)
         paths.update(bench_paths)
+        paths["soak"] = phase_soak(torch, dev)
+        paths["rss"] = phase_rss(torch, dev)
+        paths.update(phase_floor(torch, dev))
+        paths.update(phase_close_floor(torch, dev))
         paths["sim-interleave"] = phase_sim_interleave(torch, dev)
     except Exception as e:   # every phase failure ends the run non-zero
         import traceback

@@ -2,19 +2,20 @@
 the repo-root scripts/bench_full_step.py).
 
     python -m v2v_tpu_torch.scripts.bench_full_step [--config flagship|
-        hyper|CONFIG.yaml] [--steps 3] [--repeats 5] [--flops]
-        [--device DEV]
+        hyper|etnet|evflow|eraft|CONFIG.yaml] [--steps 3] [--repeats 5]
+        [--flops] [--device DEV]
 
 `--config` names a built-in config, `flagship` (the default:
 configs/train_v2v_e2vid_10k.yaml, E2VID, B=12, T=40, 128x128, bf16,
 LPIPS-VGG + L1 + temporal consistency with the RAFT-small teacher, Adam
-amsgrad) or `hyper` (configs/train_v2v_hyper_10k.yaml, HyperE2VID at
-hyper_beta 1.0, epoch 0 of its curriculum), each a copy of its YAML's
-`module` and first stage (tests hold them equal), or any train YAML
-(needs PyYAML). The step is training/steps.py::make_train_step's, from
-uint8 video on the card through K1, with a random LPIPS trunk and a
-random teacher (the compute of the pretrained ones); video from
-np.random.RandomState(0).
+amsgrad), `hyper` (configs/train_v2v_hyper_10k.yaml, HyperE2VID at
+hyper_beta 1.0, epoch 0 of its curriculum), `etnet`, `evflow` or `eraft`
+(configs/train_v2v_etnet_10k.yaml, _evflow_10k.yaml, _eraft_10k.yaml),
+each a copy of its YAML's `module` and first stage (tests hold them
+equal), or any train YAML (needs PyYAML). The step is
+training/steps.py::make_train_step's, from uint8 video on the card
+through K1, with a random LPIPS trunk and a random teacher (the compute
+of the pretrained ones); video from np.random.RandomState(0).
 
 One warm step, then `--repeats` repeats of `--steps` steps in this
 process, each step timed on the host clock up to a synchronize. A
@@ -32,7 +33,7 @@ import json
 import statistics
 import sys
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,17 +64,24 @@ _LOSS = {"lpips_weight": 1.0, "lpips_type": "vgg", "l2_weight": 0,
          "optical_flow_source": "raft_small", "temporal_consistency_L0": 20}
 
 
-def _stage(lr: float) -> Dict[str, Any]:
-    return {"optimizer": {"target": "torch.optim.Adam",
-                          "params": {"lr": lr, "weight_decay": 0,
-                                     "amsgrad": True}},
-            "lr_scheduler": {"target": "torch.optim.lr_scheduler.StepLR",
-                             "params": {"step_size": 50, "gamma": 1.0}},
-            "dataset": {"train_batch_size": 12, "train": [_TRAIN_SET]}}
+_FLOW_LOSS = {"l1_weight": 1.0, "optical_flow_source": "raft_large",
+              "raft_num_flow_updates": 12}
+
+
+def _stage(lr: float, batch: int = 12, optimizer: str = "torch.optim.Adam",
+           opt_params=None, scheduler=None, **train) -> Dict[str, Any]:
+    return {"optimizer": {"target": optimizer, "params": opt_params or {
+                "lr": lr, "weight_decay": 0, "amsgrad": True}},
+            "lr_scheduler": scheduler or {
+                "target": "torch.optim.lr_scheduler.StepLR",
+                "params": {"step_size": 50, "gamma": 1.0}},
+            "dataset": {"train_batch_size": batch,
+                        "train": [dict(_TRAIN_SET, **train)]}}
 
 
 # the `module` and first train stage (its optimizer, scheduler, batch and
-# train set) of configs/train_v2v_e2vid_10k.yaml and _hyper_10k.yaml
+# train set) of configs/train_v2v_e2vid_10k.yaml, _hyper_10k.yaml,
+# _etnet_10k.yaml, _evflow_10k.yaml and _eraft_10k.yaml
 CONFIGS: Dict[str, Tuple[Dict[str, Any], Dict[str, Any]]] = {
     "flagship": ({
         "loss": _LOSS, "normalize_voxels": False,
@@ -89,7 +97,39 @@ CONFIGS: Dict[str, Tuple[Dict[str, Any], Dict[str, Any]]] = {
                       channel_multiplier=2, num_output_channels=1,
                       use_dynamic_decoder=True)}},
         "compute_dtype": "bfloat16", "hyper_epochs": 16}, _stage(1e-3)),
+    "etnet": ({
+        "loss": _LOSS, "normalize_voxels": False,
+        "model": {"target": "model.eitr.eitr.EITR",
+                  "params": {"eitr_kwargs": {"num_bins": 5,
+                                             "norm": "none"}}},
+        "compute_dtype": "bfloat16"}, _stage(
+            2e-4, 6, "torch.optim.AdamW",
+            {"lr": 0.0002, "weight_decay": 0.01, "amsgrad": True},
+            {"target": "torch.optim.lr_scheduler.ExponentialLR",
+             "params": {"gamma": 0.94}},
+            video_list_file="configs/webvid10000_filtered.txt")),
+    "evflow": ({
+        "loss": _FLOW_LOSS, "normalize_voxels": False,
+        "model": {"target": "model.model.EVFlowNet", "params": {
+            "unet_kwargs": {"num_bins": 5, "base_num_channels": 32,
+                            "num_encoders": 4, "num_residual_blocks": 2,
+                            "num_output_channels": 2, "skip_type": "concat",
+                            "norm": None, "use_upsample_conv": True,
+                            "kernel_size": 3, "channel_multiplier": 2}}},
+        "compute_dtype": "bfloat16"}, _stage(
+            1e-4, 10, video_list_file="configs/webvid10000_full.txt",
+            output_additional_frame=True)),
+    "eraft": ({
+        "loss": _FLOW_LOSS, "normalize_voxels": False,
+        "model": {"target": "model.eraft.eraft.ERAFT",
+                  "params": {"config": {"subtype": "warm_start"},
+                             "n_first_channels": 5}},
+        "compute_dtype": "bfloat16", "forward_type": "eraft"}, _stage(
+            1e-4, 10, output_additional_frame=True,
+            output_additional_evs=True)),
 }
+# the YAMLs' `task`, where it is not "e2vid"
+TASKS = {"evflow": "flow", "eraft": "flow"}
 
 
 def load_config(name: str) -> Tuple[str, Dict[str, Any], Dict[str, Any],
@@ -97,28 +137,50 @@ def load_config(name: str) -> Tuple[str, Dict[str, Any], Dict[str, Any],
     """(name, module, first stage, task) of a built-in or a YAML."""
     if name in CONFIGS:
         module, stage = CONFIGS[name]
-        return name, module, stage, "e2vid"
+        return name, module, stage, TASKS.get(name, "e2vid")
     from ..config import load_yaml
     full = load_yaml(name)
     return (name, full["module"], full["train_stages"][0],
             full.get("task", "e2vid"))
 
 
-def build(config: str, dev: torch.device):
-    """(name, step, batch, generator, step kwargs, (B, T, H, W))."""
+class Built(NamedTuple):
+    """A built train step: `step(batch, generator, **kwargs)` on its
+    interface `iface`; `shape` (B, T, H, W); `synthesize()` the step's
+    simulator stage (K1, the bin sums, the GT frames) on the batch."""
+    name: str
+    step: Callable
+    batch: Dict[str, torch.Tensor]
+    generator: torch.Generator
+    kwargs: Dict[str, Any]
+    shape: Tuple[int, int, int, int]
+    iface: Any
+    synthesize: Callable
+
+
+def build(config: str, dev: torch.device, flow: Optional[str] = None,
+          batch: Optional[int] = None, sequence_length: Optional[int] = None,
+          crop: Optional[int] = None) -> "Built":
+    """The config's train step and what it runs on (`Built`).
+    `flow` replaces the loss's optical_flow_source (`zeros` takes the
+    teacher out of the step); `batch`, `sequence_length` and `crop` cut
+    the train set's B, T and crop size."""
     from ..losses.lpips import LPIPS
     from ..training.flow_interface import FlowModelInterface
     from ..training.interface import LossConfig, ModelInterface
     from ..training.raft import random_teacher
-    from ..training.steps import make_train_step
+    from ..training.steps import make_train_step, synthesize_batch
     from ..training.train import (make_optimizer, make_scheduler,
                                   sim_config_from_dataset)
     name, module, stage, task = load_config(config)
+    if flow is not None:
+        module = dict(module, loss=dict(module.get("loss", {}),
+                                        optical_flow_source=flow))
     ds = stage["dataset"]
     train = ds["train"][0]
-    b = ds["train_batch_size"]
-    t, bins = train["sequence_length"], train["num_bins"]
-    fpb, hw = train.get("frames_per_bin", 1), train["crop_size"]
+    b = batch or ds["train_batch_size"]
+    t, bins = sequence_length or train["sequence_length"], train["num_bins"]
+    fpb, hw = train.get("frames_per_bin", 1), crop or train["crop_size"]
     extra_frame = train.get("output_additional_frame", False)
     extra_evs = train.get("output_additional_evs", False)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -137,50 +199,61 @@ def build(config: str, dev: torch.device):
     opt = opt_cfg.make(iface.model.parameters())
     for group in opt.param_groups:
         group["lr"] = opt_cfg.base_lr * sched(0)
-    step = make_train_step(iface, opt, sim_config_from_dataset(train),
-                           num_bins=bins, frames_per_bin=fpb,
-                           extra_frame=extra_frame, extra_evs=extra_evs)
-    n = (t + (1 if extra_evs else 0)) * bins * fpb + 1 + (
-        1 if extra_frame else 0)
+    sim_cfg = sim_config_from_dataset(train)
+    step = make_train_step(iface, opt, sim_cfg, num_bins=bins,
+                           frames_per_bin=fpb, extra_frame=extra_frame,
+                           extra_evs=extra_evs)
+    # WebvidDataset's clip: the extra frame is the first of the clip's
+    # own frames, the extra event group adds a group's frames
+    n = (t + (1 if extra_evs else 0)) * bins * fpb + 1
     video = torch.as_tensor(make_video((b, n, hw, hw)), device=dev)
     batch = {"video": video,
              "data_source_idx": torch.full((b,), 11, dtype=torch.int64)}
     kw = {"hyper_beta": 1.0} if iface.hyper_epochs else {}
-    return name, step, batch, g, kw, (b, t, hw, hw)
+
+    def synthesize():
+        return synthesize_batch(video, g, sim_cfg, bins, fpb,
+                                extra_frame=extra_frame, extra_evs=extra_evs)
+
+    return Built(name, step, batch, g, kw, (b, t, hw, hw), iface, synthesize)
+
+
+def time_steps(step, batch, g, kw, dev: torch.device, steps: int,
+               repeats: int) -> dict:
+    """`repeats` repeats of `steps` steps, each timed on the host clock up
+    to a synchronize: the median of the repeats' means, their spread, the
+    times and the last loss."""
+    step_ms, loss = [], None
+    for _ in range(repeats):
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss, _ = step(batch, g, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(times)
+    per_repeat = [statistics.mean(x) for x in step_ms]
+    return {"ms_per_step": statistics.median(per_repeat),
+            "spread": [min(per_repeat), max(per_repeat)],
+            "repeats": repeats, "steps": steps, "step_ms": step_ms,
+            "last_loss": float(loss)}
 
 
 def run(config: str = "flagship", device=None, steps: int = 3,
         repeats: int = 5, flops: bool = False) -> dict:
     dev = resolve_device(device)
-    name, step, batch, g, kw, (b, t, h, w) = build(config, dev)
-
-    def synced_step():
-        t0 = time.perf_counter()
-        loss, _ = step(batch, g, **kw)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return (time.perf_counter() - t0) * 1e3, loss
-
+    name, step, batch, g, kw, (b, t, h, w), _, _ = build(config, dev)
     result = {"config": name, "batch": b, "T": t, "hw": [h, w]}
     if flops:
         from ..utils.flops import step_flops
         n_flops, _ = step_flops(step, batch, g, **kw)       # the warm step
         result["flop_per_step"] = n_flops
     else:
-        synced_step()                                      # the warm step
-    step_ms, loss = [], None
-    for _ in range(repeats):
-        times = []
-        for _ in range(steps):
-            ms, loss = synced_step()
-            times.append(ms)
-        step_ms.append(times)
-    per_repeat = [statistics.mean(x) for x in step_ms]
-    ms = statistics.median(per_repeat)
-    result.update(ms_per_step=ms, spread=[min(per_repeat), max(per_repeat)],
-                  repeats=repeats, steps=steps, step_ms=step_ms,
-                  last_loss=float(loss), device=str(dev),
-                  card=describe_device(dev))
+        time_steps(step, batch, g, kw, dev, 1, 1)          # the warm step
+    result.update(time_steps(step, batch, g, kw, dev, steps, repeats),
+                  device=str(dev), card=describe_device(dev))
+    ms = result["ms_per_step"]
     if flops:
         rate = result["flop_per_step"] / (ms / 1e3)
         result["flop_per_s"] = rate

@@ -146,12 +146,17 @@ class ModelInterface:
     # -- forward --------------------------------------------------------
     def _caller(self, train: bool):
         """model(*args, method=m, **kw), on compute-dtype parameter copies
-        when training in bf16."""
+        when training in bf16. A module registered under two names (ERAFT
+        cnet's norm3, also its downsample.1) is one object, swapped once:
+        with tie_weights, functional_call swaps it under both names and
+        restores the second from the first's copy, which left the bf16
+        copies in the model after the call."""
         if train and self.compute_dtype is not None:
             params = {k: v.to(self.compute_dtype)
                       for k, v in self.model.named_parameters()}
             return lambda *a, method, **kw: functional_call(
-                self.model, params, a, {"method": method, **kw})
+                self.model, params, a, {"method": method, **kw},
+                tie_weights=False)
         return lambda *a, method, **kw: self.model(*a, method=method, **kw)
 
     def _cast_compute(self, events: torch.Tensor, state: Any, train: bool

@@ -22,7 +22,7 @@ import datetime
 import math
 import os
 import time
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -172,7 +172,8 @@ def _validate(iface: ModelInterface, val_loader: DataLoader,
 
 def main(configs: Dict[str, Any], max_batches_per_epoch: Optional[int] = None,
          root: str = ".", device=None, train_dataset=None,
-         val_dataset=None) -> Dict[str, Any]:
+         val_dataset=None, on_epoch_end: Optional[Callable[[int], None]]
+         = None) -> Dict[str, Any]:
     """Run all training stages; returns the model, the last optimizer, the
     next epoch and what the run measured (for tests and chip_smoke.py).
 
@@ -190,15 +191,15 @@ def main(configs: Dict[str, Any], max_batches_per_epoch: Optional[int] = None,
     created = mesh.init_from_env(cpu)
     try:
         return _main(configs, max_batches_per_epoch, root, device,
-                     train_dataset, val_dataset)
+                     train_dataset, val_dataset, on_epoch_end)
     finally:
         if created:
             mesh.destroy()
 
 
 def _main(configs: Dict[str, Any], max_batches_per_epoch: Optional[int] = None,
-         root: str = ".", device=None, train_dataset=None,
-         val_dataset=None) -> Dict[str, Any]:
+          root: str = ".", device=None, train_dataset=None,
+          val_dataset=None, on_epoch_end=None) -> Dict[str, Any]:
     device = resolve_device(device)
     experiment_name = configs["experiment_name"]
     task = configs.get("task", "e2vid")
@@ -326,6 +327,8 @@ def _main(configs: Dict[str, Any], max_batches_per_epoch: Optional[int] = None,
                             f.write(f"{stamp} Epoch {global_epoch}: "
                                     f"{total_val}\n")
                     mesh.barrier()
+                if on_epoch_end is not None:
+                    on_epoch_end(global_epoch)
             cur_epoch = sum(epochs_of_stages[:stage_idx + 1])
     finally:
         writer.close()

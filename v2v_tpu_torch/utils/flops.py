@@ -33,12 +33,21 @@ On the CPU every wrapper runs its plain version, whose matmuls count.
     flops = count_flops(model, x)                 # runs model(x) once
     hist = count_flops_by_shape(model, x)         # {op signature: flops}
     flops, out = step_flops(step, batch, g)       # one train step
+    entries, out = record_ops(step, batch, g)     # replayable, by call
+    args, kwargs = replay_inputs(entries[0], device)
+    replay(entries[0], args, kwargs)              # one call of entry 0
+
+`record_ops` keeps, for each distinct call (op, every tensor's shape,
+dtype and strides, every other argument: stride, padding, dilation,
+groups, transposed, output padding, output mask, sizes), its count and
+FLOPs, so that a call can be replayed alone (scripts/roofline_floor.py);
+its entries' FLOPs sum to `step_flops`'s count.
 """
 from __future__ import annotations
 
 import math
 from collections import defaultdict
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
@@ -88,35 +97,10 @@ _CONV_RULES = {aten.convolution: _conv_flop, aten._convolution: _conv_flop,
                aten.upsample_bilinear2d_backward: _resize_backward_flop}
 
 
-def _shape(a) -> Any:
-    return tuple(a.shape) if isinstance(a, torch.Tensor) else None
-
-
-def _mapping(hist: Dict[str, float] = None) -> Dict[Any, Callable]:
-    """FlopCounterMode's custom_mapping: the JAX rule for convolutions,
-    torch's formulas otherwise; with `hist`, each count is also added
-    under the op's name and operand and result shapes."""
-    if hist is None:
-        return dict(_CONV_RULES)
-    from torch.utils.flop_counter import shape_wrapper
-    formulas = dict(flop_registry)
-    formulas.update({k: shape_wrapper(v) for k, v in _CONV_RULES.items()})
-    mapping = {}
-    for op, formula in formulas.items():
-        def recording(*args, out_val=None, _op=op, _f=formula, **kwargs):
-            n = _f(*args, out_val=out_val, **kwargs)
-            if n:
-                ins = "x".join(str(_shape(a)) for a in args[:2]
-                               if _shape(a) is not None)
-                outs = (_shape(out_val) if isinstance(out_val, torch.Tensor)
-                        else tuple(_shape(o) for o in out_val
-                                   if _shape(o) is not None))
-                key = f"{getattr(_op, '__name__', _op)} {ins}->{outs}"
-                hist[key] += n
-            return n
-        recording._get_raw = True
-        mapping[op] = recording
-    return mapping
+def _mapping() -> Dict[Any, Callable]:
+    """FlopCounterMode's custom_mapping: the JAX rule for convolutions and
+    resizes, torch's formulas otherwise."""
+    return dict(_CONV_RULES)
 
 
 def _run(mapping, fn: Callable, args, kwargs) -> Tuple[float, Any]:
@@ -134,9 +118,11 @@ def count_flops(fn: Callable, *args, **kwargs) -> float:
 def count_flops_by_shape(fn: Callable, *args, **kwargs) -> Dict[str, float]:
     """The FLOPs of one call by op and shapes, `"<op> <operand shapes>->
     <result shapes>"`: which matmul and convolution shapes carry the
-    work."""
+    work (record_ops' entries summed by those keys)."""
     hist: Dict[str, float] = defaultdict(float)
-    _run(_mapping(hist), fn, args, kwargs)
+    for e in record_ops(fn, *args, **kwargs)[0]:
+        ins = "x".join(str(t.shape) for t in e["tensors"][:2])
+        hist[f"{e['name']} {ins}->{e['outs']}"] += e["flops"]
     return dict(hist)
 
 
@@ -145,3 +131,102 @@ def step_flops(step: Callable, *args, **kwargs) -> Tuple[float, Any]:
     counted step is a real one (its update applies), so a caller that
     times the step keeps it as its first, untimed step."""
     return _run(_mapping(), step, args, kwargs)
+
+
+class TensorSpec(NamedTuple):
+    """A recorded tensor argument: enough to make one like it."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    stride: Tuple[int, ...]
+
+
+def _spec(a) -> Any:
+    if isinstance(a, torch.Tensor):
+        return TensorSpec(tuple(a.shape), a.dtype, tuple(a.stride()))
+    if isinstance(a, (list, tuple)):
+        return tuple(_spec(x) for x in a)
+    return a
+
+
+def _tensor_specs(spec) -> List[TensorSpec]:
+    if isinstance(spec, TensorSpec):
+        return [spec]
+    if isinstance(spec, tuple):
+        return [t for x in spec for t in _tensor_specs(x)]
+    return []
+
+
+def record_ops(fn: Callable, *args, **kwargs
+               ) -> Tuple[List[Dict[str, Any]], Any]:
+    """Every matmul, convolution and booked resize of one call `fn(*args,
+    **kwargs)` (the call runs), grouped by everything a replay needs:
+    [{"op": the aten op, "name", "args", "kwargs" (tensors as
+    TensorSpec), "count", "flops" (the count's total, by the rules
+    above), "tensors": the TensorSpecs in order, "outs": the result's
+    shape (a tuple of shapes for several)}], largest FLOPs first, and
+    what `fn` returned."""
+    from torch.utils.flop_counter import shape_wrapper
+    formulas = dict(flop_registry)
+    formulas.update({k: shape_wrapper(v) for k, v in _CONV_RULES.items()})
+    entries: Dict[Any, Dict[str, Any]] = {}
+    mapping = {}
+    for op, formula in formulas.items():
+        def recording(*a, out_val=None, _op=op, _f=formula, **kw):
+            n = _f(*a, out_val=out_val, **kw)
+            if n:
+                sa, skw = _spec(a), tuple(sorted((k, _spec(v))
+                                                 for k, v in kw.items()))
+                key = (str(_op), sa, skw)
+                e = entries.get(key)
+                if e is None:
+                    outs = [tuple(t.shape)
+                            for t in _tensor_specs(_spec(out_val))]
+                    e = entries[key] = {
+                        "op": _op, "name": getattr(_op, "__name__",
+                                                   str(_op)),
+                        "args": sa, "kwargs": dict(skw), "count": 0,
+                        "flops": 0.0, "tensors": _tensor_specs(sa),
+                        "outs": outs[0] if len(outs) == 1 else tuple(outs)}
+                e["count"] += 1
+                e["flops"] += n
+            return n
+        recording._get_raw = True
+        mapping[op] = recording
+    _, out = _run(mapping, fn, args, kwargs)
+    return sorted(entries.values(), key=lambda e: -e["flops"]), out
+
+
+def _make(spec: TensorSpec, device, generator) -> torch.Tensor:
+    """A tensor of `spec`'s shape, dtype and strides on `device`, its
+    storage filled with unit normals (zeros for an integer dtype)."""
+    size = 1 + sum((n - 1) * st for n, st in zip(spec.shape, spec.stride)
+                   if n > 0)
+    if any(n == 0 for n in spec.shape):
+        size = 0
+    buf = torch.empty(size, dtype=spec.dtype, device=device)
+    if buf.is_floating_point():
+        buf.normal_(generator=generator)
+    else:
+        buf.zero_()
+    return buf.as_strided(spec.shape, spec.stride)
+
+
+def _materialize(spec, device, generator) -> Any:
+    if isinstance(spec, TensorSpec):
+        return _make(spec, device, generator)
+    if isinstance(spec, tuple):           # torch takes any int[] as a list
+        return [_materialize(x, device, generator) for x in spec]
+    return spec
+
+
+def replay_inputs(entry: Dict[str, Any], device, generator=None
+                  ) -> Tuple[list, dict]:
+    """(args, kwargs) for one call of a recorded entry on `device`."""
+    return ([_materialize(a, device, generator) for a in entry["args"]],
+            {k: _materialize(v, device, generator)
+             for k, v in entry["kwargs"].items()})
+
+
+def replay(entry: Dict[str, Any], args: tuple, kwargs: dict) -> Any:
+    """One call of a recorded entry's op on `replay_inputs`' tensors."""
+    return entry["op"](*args, **kwargs)
