@@ -192,6 +192,16 @@ Phases, one line each, any failure exits non-zero:
      from 40 to 8: the step, the step with a zeros teacher, the
      simulator, the model's constituents forward and backward, the
      residual and the fill, which sum to the step)
+ 14l. the last tools ([tools]): v2v_tpu_torch/scripts/minimal_train.py
+     (the library example: 5 steps of a width-8 E2VID on drifting video,
+     K1 once a step, losses finite and falling, ms a step); the ESIM
+     renderer (scripts/visualize_esim_sample.py on its synthetic source:
+     8 voxel and 8 frame PNGs of 128x128 written without cv2, counts
+     finite and integral); the h5 voxel-cache writer's core
+     (scripts/testh5_to_voxel_cache.py::cache_arrays) on an HQF-layout
+     file of 5 EVAID-sized 720x1280 frames held in memory, read by the
+     port's TestH5Dataset through the C++ builder: equal to
+     events_to_voxel_np, host ms a frame
  15. the K5 experiment: v2v_tpu_torch/scripts/exp_sim_interleave.py at
      its full workload (12 clips of 201 uint8 frames at 128x128, spp 1,
      2 and 4, 50 chained launches a run); K5's launch count must equal
@@ -3779,6 +3789,140 @@ def phase_close_floor(torch, dev):
     return paths
 
 
+# [tools]: minimal_train's steps, the ESIM renderer's PNGs (41 frames of
+# 5 bins) and the cache writer's core on a few EVAID-sized frames
+TOOLS_STEPS = 5
+TOOLS_ESIM_PNGS = 8
+TOOLS_CACHE_FRAMES = 5
+
+
+def _png_shape(path):
+    """(height, width) of an 8-bit grayscale PNG, from its IHDR, after
+    checking that its IDAT inflates to one filter byte and `width` pixels
+    a row (the card's machine has no cv2 to read it)."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    _require(data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR",
+             f"{path}: not a PNG")
+    w, h, depth, color = struct.unpack(">IIBB", data[16:26])
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    _require(depth == 8 and color == 0
+             and len(zlib.decompress(idat)) == h * (w + 1),
+             f"{path}: {w}x{h}, depth {depth}, color type {color}")
+    return h, w
+
+
+def phase_tools(torch, dev, seed):
+    """[tools]: the port's last tools on the card. minimal_train.main
+    (the library example: TOOLS_STEPS steps of the width-8 E2VID on
+    drifting video, K1 once a step, the losses finite and falling, then a
+    streaming forward); visualize_esim_sample.render on its synthetic
+    source (ops/voxel.py::simulate_sequence on the card) into a temporary
+    directory, TOOLS_ESIM_PNGS voxel and frame PNGs of 128x128 and counts
+    finite and integral; testh5_to_voxel_cache.cache_arrays on an
+    EVAID-sized HQF-layout file held in memory (data/synthetic.py::
+    SyntheticH5Sequence, TOOLS_CACHE_FRAMES frames, 400,000 events
+    between each two; no h5py there), read by the port's TestH5Dataset
+    through the C++ builder, equal to events_to_voxel_np on each window's
+    events and to the stored frames, its host ms a frame (a median of 3)
+    beside the builder's alone on the same windows. Returns the
+    launches."""
+    import shutil
+    import numpy as np
+    from v2v_tpu_torch.data.native import events_to_voxel_native
+    from v2v_tpu_torch.data.synthetic import SyntheticH5Sequence
+    from v2v_tpu_torch.ops.voxel import events_to_voxel_np
+    from v2v_tpu_torch.scripts import (minimal_train, testh5_to_voxel_cache,
+                                       visualize_esim_sample)
+    tag = "tools"
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = minimal_train.main(dev, TOOLS_STEPS)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    losses = out["losses"]
+    _require(out["k1_launches"] == TOOLS_STEPS
+             and launches["simulate_batch"] == TOOLS_STEPS,
+             f"{tag}: K1 launched {out['k1_launches']} times in "
+             f"{TOOLS_STEPS} steps ({launches})")
+    _require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+             and all(math.isfinite(x) for x in out["pred_range"]),
+             f"{tag}: minimal_train losses {losses}, prediction range "
+             f"{out['pred_range']}")
+    _log(f"[{tag}] minimal_train B={minimal_train.B} T={minimal_train.T} "
+         f"{minimal_train.H}x{minimal_train.W}: losses "
+         + ", ".join(f"{x:.4f}" for x in losses) + f"; synchronized ms a "
+         f"step after the first {statistics.median(out['step_ms'][1:]):.2f} "
+         f"(all: " + ", ".join(f"{x:.2f}" for x in out["step_ms"])
+         + f"); prediction {out['pred_shape']} in {out['pred_range']}; K1 "
+         f"{out['k1_launches']} launches")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_esim_")
+    try:
+        t1 = time.perf_counter()
+        vis = visualize_esim_sample.render("synthetic", root, dev, seed)
+        vis_s = time.perf_counter() - t1
+        shapes = {os.path.basename(p): _png_shape(p) for p in vis["paths"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    v = vis["voxels"]
+    for kind in ("voxel", "frame"):
+        named = [k for k in shapes if k.startswith(kind + "_")]
+        _require(len(named) == TOOLS_ESIM_PNGS and all(
+            shapes[k] == (visualize_esim_sample.H, visualize_esim_sample.W)
+            for k in named), f"{tag}: {kind} PNGs {sorted(named)}")
+    _require(np.isfinite(v).all() and np.array_equal(v, np.round(v))
+             and np.abs(v).sum() > 0,
+             f"{tag}: the ESIM sample's counts are not finite integers")
+    _log(f"[{tag}] visualize_esim_sample synthetic: {len(shapes)} PNGs of "
+         f"128x128, voxels {v.shape}, |counts| {float(np.abs(v).sum()):.0f}, "
+         f"thresholds {vis['pos_thres']:.3f}/{vis['neg_thres']:.3f}; "
+         f"{vis_s:.2f} s")
+
+    bins = 5
+    ds = SyntheticH5Sequence("cache", seed, TOOLS_CACHE_FRAMES, EVAL_HW,
+                             EVAL_EVENTS_PER_FRAME,
+                             testh5_to_voxel_cache.reader_config(bins,
+                                                                 False))
+    frames, events = testh5_to_voxel_cache.cache_arrays(ds)
+    arr = ds.file.arrays
+    e = arr["event_idx"]
+    t = TOOLS_CACHE_FRAMES - 1
+    h, w = EVAL_HW
+    windows = [[arr[k][e[i]:e[i + 1]] for k in ("ts", "xs", "ys", "ps")]
+               for i in range(t)]
+    ms = _host_ms(lambda: testh5_to_voxel_cache.cache_arrays(ds), 3) / t
+    builder_ms = _host_ms(lambda: [events_to_voxel_native(
+        *ev, num_bins=bins, height=h, width=w) for ev in windows], 3) / t
+    _require(frames.shape == (t, h, w) and events.shape == (t, bins, h, w)
+             and frames.dtype == events.dtype == np.float32
+             and np.array_equal(frames, arr["images"][1:].astype(np.float32)),
+             f"{tag}: cache frames {frames.shape}, events {events.shape}")
+    for i, ev in enumerate(windows):
+        want = events_to_voxel_np(*ev, num_bins=bins, height=h,
+                                  width=w).astype(np.float32)
+        _require(np.array_equal(events[i], want),
+                 f"{tag}: the cache's window {i} differs from numpy by "
+                 f"{float(np.abs(events[i] - want).max()):.3g}")
+    launches_after = _read_launches()
+    _require(launches_after == launches,
+             f"{tag}: kernels launched after minimal_train: "
+             f"{launches_after}")
+    _log(f"[{tag}] testh5_to_voxel_cache core: {t} frames of {h}x{w}, "
+         f"{EVAL_EVENTS_PER_FRAME} events each, {bins} bins: {ms:.2f} host "
+         f"ms a frame through TestH5Dataset and the C++ builder (the "
+         f"builder alone {builder_ms:.2f}), equal to events_to_voxel_np; "
+         f"{time.perf_counter() - t0:.1f} s in all")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3888,6 +4032,7 @@ def main(argv=None) -> int:
         paths["rss"] = phase_rss(torch, dev)
         paths.update(phase_floor(torch, dev))
         paths.update(phase_close_floor(torch, dev))
+        paths["tools"] = phase_tools(torch, dev, args.seed)
         paths["sim-interleave"] = phase_sim_interleave(torch, dev)
     except Exception as e:   # every phase failure ends the run non-zero
         import traceback

@@ -5,6 +5,7 @@ phase's report; an injected leak in the Python heap). Also the bf16
 step's parameter swap on a module registered under two names (ERAFT's
 cnet), which a soak would carry over thousands of steps."""
 import copy
+import glob
 import json
 import os
 import sys
@@ -17,6 +18,7 @@ import torch
 
 from v2v_tpu.training import train as jtrain
 
+from v2v_tpu_torch.config import instantiate_from_config, load_yaml
 from v2v_tpu_torch.scripts import diag_rss, soak_train
 from v2v_tpu_torch.scripts.bench_full_step import build
 from v2v_tpu_torch.training import train as ttrain
@@ -269,6 +271,57 @@ def test_bf16_steps_keep_a_twice_registered_modules_parameters():
     key = "cnet.layer2.0.norm3.weight"
     assert moved[key].dtype == torch.float32
     assert not torch.equal(moved[key], state[key])   # the optimizer's steps
+
+
+def _tied_across_modules(model):
+    """The names of each parameter reached under two or more names that do
+    not all lead to one module object by one attribute: a weight tied
+    between distinct modules, which the bf16 step's
+    functional_call(tie_weights=False) would untie."""
+    names_by_param = {}
+    for name, p in model.named_parameters(remove_duplicate=False):
+        names_by_param.setdefault(id(p), []).append(name)
+    tied = []
+    for names in names_by_param.values():
+        owners = set()
+        for name in names:
+            module, _, attr = name.rpartition(".")
+            owners.add((id(model.get_submodule(module)), attr))
+        if len(owners) > 1:
+            tied.append(names)
+    return tied
+
+
+class _TwoLinears(torch.nn.Module):
+    def __init__(self, tie):
+        super().__init__()
+        self.a = torch.nn.Linear(3, 3)
+        self.b = torch.nn.Linear(3, 3)
+        self.alias = self.a                      # one module, two names
+        if tie:
+            self.b.weight = self.a.weight        # two modules, one weight
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(
+    os.path.join(ROOT, "configs", "*.yaml"))), ids=os.path.basename)
+def test_no_config_model_ties_a_parameter_between_two_modules(path):
+    """Every config's model, built by its constructor on the CPU at the
+    config's widths (no forward): a parameter reached under two names is
+    one module's, registered under both (ERAFT's norm3 / downsample.1),
+    which is what makes `_caller`'s tie_weights=False safe. The model is
+    built directly, since materialize's meta-to-CPU copy would itself
+    untie a weight shared by two modules."""
+    model = instantiate_from_config(load_yaml(path)["module"]["model"])
+    assert _tied_across_modules(model) == []
+    shared = len(list(model.named_parameters(remove_duplicate=False))) - \
+        len(list(model.named_parameters()))
+    assert (shared > 0) == ("eraft" in os.path.basename(path))
+
+
+def test_the_tie_check_tells_a_tie_from_a_module_named_twice():
+    assert _tied_across_modules(_TwoLinears(tie=False)) == []
+    assert _tied_across_modules(_TwoLinears(tie=True)) == [
+        ["a.weight", "b.weight", "alias.weight"]]
 
 
 def _drifting_frames_loop(data_cfg, seed, idx):

@@ -9,13 +9,16 @@ scripts (`scripts/soak_train.py`, `scripts/diag_rss.py`).
   TestH5FlowDataset) items, voxelized by the builder the data config
   selects: uniform random events, unrelated to its frames;
 - `SimulatedSequence`: a held-out DriftingClips clip through the port's
-  simulator, in TestH5Dataset's contract: events made from its frames.
+  simulator, in TestH5Dataset's contract: events made from its frames;
+- `MemoryH5` and `SyntheticH5Sequence`: an HQF-layout h5 file held in
+  numpy arrays, read by the port's TestH5Dataset itself.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..ops.voxel import events_to_voxel_np
+from .h5 import TestH5Dataset
 from .native import events_to_voxel_native
 from .sources import DATA_SOURCES
 
@@ -192,3 +195,84 @@ class SimulatedSequence:
                 "sequence_name": self.name,
                 "frame_idx": np.arange(t, dtype=np.int64),
                 "real_begin_idx": np.zeros((t,), np.int64)}
+
+
+def synthetic_hqf(seed, frames, hw, events_per_frame):
+    """The datasets of an HQF-layout h5, from numpy with `seed`: `frames`
+    uint8 images of a drifting texture (`images`, (N, H, W)), their
+    `event_idx`, and `events_per_frame` uniform random events between
+    each two (`ts` float64 seconds, stamped from 1.6e9 at 30 frames a
+    second as raw captures are; `xs`, `ys` uint16; `ps` uint8 in {0, 1})."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    cell = 16
+    coarse = rng.integers(0, 256, (h // cell + 2, w // cell + 2))
+    texture = np.kron(coarse, np.ones((cell, cell), np.int64))
+    images = np.stack([texture[t % cell:t % cell + h,
+                               2 * t % cell:2 * t % cell + w]
+                       for t in range(frames)]).astype(np.uint8)
+    n = events_per_frame * (frames - 1)
+    window = np.repeat(np.arange(frames - 1), events_per_frame)
+    return {
+        "images": images,
+        "event_idx": np.arange(frames, dtype=np.int64) * events_per_frame,
+        "ts": 1.6e9 + (window + np.sort(rng.random(n).reshape(
+            frames - 1, events_per_frame), axis=1).ravel()) / 30.0,
+        "xs": rng.integers(0, w, n).astype(np.uint16),
+        "ys": rng.integers(0, h, n).astype(np.uint16),
+        "ps": rng.integers(0, 2, n).astype(np.uint8),
+    }
+
+
+class _Image:
+    """An image dataset: `[()]`, `shape` and attrs["event_idx"]."""
+
+    def __init__(self, data, event_idx):
+        self.data, self.shape = data, data.shape
+        self.attrs = {"event_idx": event_idx}
+
+    def __getitem__(self, key):
+        return self.data[key]
+
+
+class MemoryH5:
+    """The arrays of `synthetic_hqf` behind the part of h5py's File that
+    TestH5Dataset reads: `f["images"]` (keys `imageNNNNNNNNN`, each an
+    image with attrs["event_idx"]) and `f["events/<name>"]` slices. A
+    context manager, as h5py.File is. It stands in for an h5 file where
+    there is no h5py."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+        self.images = {f"image{i:09d}": _Image(img, int(e))
+                       for i, (img, e) in enumerate(
+                           zip(arrays["images"], arrays["event_idx"]))}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __getitem__(self, key):
+        if key == "images":
+            return self.images
+        group, name = key.split("/")
+        if group != "events":
+            raise KeyError(key)
+        return self.arrays[name]
+
+
+class SyntheticH5Sequence(TestH5Dataset):
+    """The port's TestH5Dataset over a MemoryH5 of `synthetic_hqf(seed,
+    frames, hw, events_per_frame)`, named `name`: its windows, its frames
+    and its voxels (the C++ builder unless the config sets
+    use_native_voxel_builder false), all from TestH5Dataset's own code."""
+
+    def __init__(self, name, seed, frames, hw, events_per_frame, configs):
+        self.file = MemoryH5(synthetic_hqf(seed, frames, hw,
+                                           events_per_frame))
+        super().__init__(f"{name}.h5", configs)
+
+    def _open(self):
+        return self.file

@@ -1,0 +1,20 @@
+"""The flow metrics' form of result_to_col (port of
+scripts/flow_result_to_col.py: the same argv and output).
+
+    python -m v2v_tpu_torch.scripts.flow_result_to_col <csv_path> [row_index=-1]
+"""
+from __future__ import annotations
+
+import sys
+
+from .registry import FLOW_METRICS, FLOW_SEQUENCES, print_columns
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    print_columns(argv[0], int(argv[1]) if len(argv) > 1 else -1,
+                  FLOW_SEQUENCES, FLOW_METRICS)
+
+
+if __name__ == "__main__":
+    main()
