@@ -30,6 +30,7 @@ from v2v_tpu_torch.training.checkpoint import (all_ckpt_paths,
                                                save_checkpoint)
 from v2v_tpu_torch.training.interface import ModelInterface
 from v2v_tpu_torch.training.optim import Adam, StepLR
+from v2v_tpu_torch.utils import timers
 
 import chip_smoke
 from test_data import _write_video, make_hqf_h5
@@ -228,6 +229,52 @@ def test_kill_and_resume_equals_an_unbroken_run(data, tmp_path, capsys):
     _assert_same((fresh.model.state_dict(),),
                  (resumed["model"].state_dict(),))
     assert len(_val_losses(root)) == 3
+
+
+def test_the_trace_key_times_the_driver_and_logs_the_snapshot(
+        data, tmp_path, monkeypatch):
+    """`trace: true`: the loader wait and the checkpoint are spans, the
+    timings are filled as with the tracer off, and every 50 steps (here
+    each epoch's first) the snapshot of the steps since the last one goes
+    to TensorBoard under perf/; the tracer is off after."""
+    scalars, snaps = [], []
+    snapshot = timers.snapshot
+
+    def spy():
+        snaps.append(snapshot())
+        return snaps[-1]
+
+    class Writer:
+        enabled = False
+
+        def __init__(self, *a, **k):
+            pass
+
+        def add_scalar(self, tag, value, step):
+            scalars.append((tag, value))
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(train, "_Writer", Writer)
+    monkeypatch.setattr(timers, "snapshot", spy)
+    cfg = dict(_config(data, 3), trace=True)
+    out = train.main(cfg, BATCHES, str(tmp_path), device="cpu")
+    timings = out["timings"]
+    assert len(timings["loader_wait_ms"]) == 3 * BATCHES
+    assert len(timings["checkpoint_s"]) == 3
+    assert all(x >= 0 for k in ("loader_wait_ms", "checkpoint_s")
+               for x in timings[k])
+    # a step closes at the next one's begin mark: the first snapshot has
+    # none, each later one the epoch before's two, not every step so far
+    assert [s["steps"] for s in snaps] == [0, BATCHES, BATCHES]
+    assert snaps[-1]["spans"]["v2v.checkpoint"]["count"] == 1
+    perf = {tag for tag, _ in scalars if tag.startswith("perf/")}
+    assert {"perf/synthesize_stream_ms", "perf/forward_stream_ms",
+            "perf/backward_stream_ms", "perf/step_stream_ms",
+            "perf/launch_lead_ms", "perf/tracer_us", "perf/loader_wait_ms",
+            "perf/checkpoint_stream_ms"} <= perf
+    assert snapshot() is None
 
 
 def _steps(monkeypatch):

@@ -20,12 +20,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import voxel_cuda
 from ..ops.voxel import (SimConfig, SimParams, esim_video_to_voxel,
                          sample_sim_params)
 from ..parallel import mesh
+from ..utils import timers
 from .interface import ModelInterface
 
 
@@ -124,7 +124,10 @@ def make_train_step(interface: ModelInterface,
     optimizer never sees them. `aux` holds the per-sample loss terms (B,)
     of this process's rows, pred stats and grad_norm. Under data
     parallelism the returned loss is its mean over the processes and
-    grad_norm the norm of the mean gradient the optimizer steps on."""
+    grad_norm the norm of the mean gradient the optimizer steps on. Each
+    stage is a `timers.span` (v2v.synthesize, v2v.teacher, v2v.forward,
+    v2v.loss, v2v.backward, v2v.all_reduce, v2v.optimizer; none nested in
+    another), and the step opens with the tracer's begin mark."""
     params = [p for p in interface.model.parameters() if p.requires_grad]
     use_hyper = interface.hyper_epochs > 0
     if interface.uses_teacher:
@@ -133,36 +136,37 @@ def make_train_step(interface: ModelInterface,
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              hyper_beta: float = 0.0):
+        timers.step_begin()
         if sim_cfg is not None:
             if generator is None:
                 raise ValueError("the simulator path needs a generator")
-            with record_function("v2v.synthesize"):
+            with timers.span("v2v.synthesize"):
                 events, gt = synthesize_batch(
                     batch["video"], generator, sim_cfg, num_bins,
                     frames_per_bin, extra_frame=extra_frame,
                     extra_evs=extra_evs, fixed_pos=batch.get("pos_thres"),
                     fixed_neg=batch.get("neg_thres"))
             batch = dict(batch, events=events, frame=gt)
-        with record_function("v2v.teacher"):
+        with timers.span("v2v.teacher"):
             batch = interface.prepare_flow(batch)
         b, _, h, w, _ = batch["events"].shape
         state0 = interface.init_state(b, h, w)
         optimizer.zero_grad(set_to_none=True)
-        with record_function("v2v.forward"):
+        with timers.span("v2v.forward"):
             pred, _ = interface.forward_sequence(
                 batch["events"], state0, train=True,
                 gt_frames=batch["frame"] if use_hyper else None,
                 hyper_beta=hyper_beta if use_hyper else None,
                 generator=None if generator is None
                 else dropout_generator(generator))
-        with record_function("v2v.loss"):
+        with timers.span("v2v.loss"):
             loss, aux = interface.calc_loss(pred, batch)
-        with record_function("v2v.backward"):
+        with timers.span("v2v.backward"):
             loss.backward()
-        with record_function("v2v.all_reduce"):
+        with timers.span("v2v.all_reduce"):
             mesh.all_reduce_gradients(params)
             loss = mesh.all_reduce_mean(loss)
-        with record_function("v2v.optimizer"):
+        with timers.span("v2v.optimizer"):
             aux["grad_norm"] = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(p.grad) for p in params
                  if p.grad is not None]))

@@ -32,6 +32,7 @@ from ..config import resolve_target
 from ..data.interface import DataLoader, make_concat_multi_dataset
 from ..ops.voxel import SimConfig
 from ..parallel import mesh
+from ..utils import timers
 from .checkpoint import (append_ckpt_path, last_ckpt_path, load_checkpoint,
                          load_optimizer_state, save_checkpoint)
 from .flow_interface import FlowModelInterface
@@ -178,6 +179,9 @@ def main(configs: Dict[str, Any], max_batches_per_epoch: Optional[int] = None,
     next epoch and what the run measured (for tests and chip_smoke.py).
 
     `max_batches_per_epoch` caps the train and val batches an epoch.
+    The config key `trace: true` turns the span tracer on for the run
+    (utils/timers.py): every 50 steps the snapshot of the steps since the
+    last one goes to TensorBoard (`_check_and_log`).
     `device=None` means the card (raises without one): under torchrun
     cuda:LOCAL_RANK, in a process group on NCCL; `device="cpu"` takes
     gloo. `train_dataset` / `val_dataset` replace the datasets the
@@ -242,6 +246,8 @@ def _main(configs: Dict[str, Any], max_batches_per_epoch: Optional[int] = None,
     timings = out["timings"]
     optimizer = None
     writer = _Writer(log_dir, enabled=mesh.rank0())
+    if configs.get("trace", False):
+        timers.trace_on(device)
     try:
         for stage_idx, stage_cfg in enumerate(configs["train_stages"]):
             if stage_of_epoch(cur_epoch) > stage_idx:
@@ -314,8 +320,9 @@ def _main(configs: Dict[str, Any], max_batches_per_epoch: Optional[int] = None,
                         ckpt_path = os.path.join(
                             ckpt_dir, f"epoch_{global_epoch:04d}.pth")
                         t0 = time.perf_counter()
-                        save_checkpoint(ckpt_path, model, optimizer,
-                                        global_epoch, scheduler)
+                        with timers.span("v2v.checkpoint"):
+                            save_checkpoint(ckpt_path, model, optimizer,
+                                            global_epoch, scheduler)
                         timings["checkpoint_s"].append(
                             time.perf_counter() - t0)
                         timings["checkpoint_bytes"].append(
@@ -331,6 +338,7 @@ def _main(configs: Dict[str, Any], max_batches_per_epoch: Optional[int] = None,
                     on_epoch_end(global_epoch)
             cur_epoch = sum(epochs_of_stages[:stage_idx + 1])
     finally:
+        timers.trace_off()
         writer.close()
     out.update(model=model, optimizer=optimizer, epoch=cur_epoch)
     return out
@@ -369,7 +377,8 @@ def _train_epoch(configs, iface, train_step, optimizer, train_loader,
             if max_batches is not None and batch_idx >= max_batches:
                 break
             starts.append(time.perf_counter())
-            batch, src_idx = next(batches)
+            with timers.span("v2v.loader_wait"):
+                batch, src_idx = next(batches)
             out["timings"]["loader_wait_ms"].append(
                 (time.perf_counter() - starts[-1]) * 1e3)
             if prof_steps and batch_idx == prof_steps[0]:
@@ -428,6 +437,20 @@ def _check_and_log(configs, loss, aux, src_idx, writer, global_epoch,
     step = global_epoch * max(n_batches, 1) + batch_idx
     for k, v in logs.items():
         writer.add_scalar(f"train/{k}", v, step)
+    snap = timers.snapshot()
+    if snap is not None:
+        # perf/<span>_stream_ms, the step's, the smallest lead, the loader's
+        # host wait, the allocator's cudaMallocs and the tracer's own us, a
+        # step over the steps since the last snapshot
+        perf = {f"{k.removeprefix('v2v.')}_stream_ms": v["stream_ms"]
+                for k, v in snap["spans"].items()}
+        perf.update({k: snap[k] for k in ("step_stream_ms", "launch_lead_ms",
+                                          "device_allocs", "tracer_us")})
+        perf["loader_wait_ms"] = snap["spans"].get(
+            "v2v.loader_wait", {}).get("host_ms")
+        for k, v in perf.items():
+            if v is not None:
+                writer.add_scalar(f"perf/{k}", v, step)
     if batch_idx > 0:
         rate = batch_idx / max(time.perf_counter() - t0, 1e-9)
         _log(f"  epoch {global_epoch} step {batch_idx}/{n_batches} "
