@@ -593,6 +593,23 @@ K4_SHAPES = (((1, 180, 320, 6, 128), "float32"),
 K4_BWD_SHAPES = (((12, 32, 32, 6, 128), "bfloat16"),
                  ((2, 37, 53, 6, 97), "float32"),
                  ((2, 16, 24, 6, 256), "float32"))
+# The x2 upsample's inputs on the main paths (path, shape, dtype, channels
+# last): the flagship's three decoders (B*T = 480), EVFlowNet's four
+# (B*T = 400), HyperE2VID's dynamic decoder in training (B = 12) and at
+# 720p, which hand it channels-last tensors, and E2VID's and ETNet's three
+# at 720p (N = 1)
+UP_SHAPES = (("flagship", (480, 256, 16, 16), "bfloat16", False),
+             ("flagship", (480, 128, 32, 32), "bfloat16", False),
+             ("flagship", (480, 64, 64, 64), "bfloat16", False),
+             ("evflow", (400, 1024, 8, 8), "bfloat16", False),
+             ("evflow", (400, 512, 16, 16), "bfloat16", False),
+             ("evflow", (400, 256, 32, 32), "bfloat16", False),
+             ("evflow", (400, 128, 64, 64), "bfloat16", False),
+             ("hyper", (12, 256, 16, 16), "bfloat16", True),
+             ("hyper-eval720", (1, 256, 90, 160), "float32", True),
+             ("eval720", (1, 256, 90, 160), "float32", False),
+             ("eval720", (1, 128, 180, 320), "float32", False),
+             ("eval720", (1, 64, 360, 640), "float32", False))
 # |K4 - plain| on unit-normal z and atoms (|out| up to ~60): float32 sums
 # of 150 products in another order (fused multiply-adds, m before the
 # offsets). Its gradients too: datoms sums CO products (|datoms| up to
@@ -870,13 +887,16 @@ def _kernels():
     from v2v_tpu_torch.ops import attention as at
     from v2v_tpu_torch.ops import dynconv as dc
     from v2v_tpu_torch.ops import sim_interleave as si
+    from v2v_tpu_torch.ops import upsample as up
     from v2v_tpu_torch.ops import voxel_cuda as vc
     return {"simulate_batch": vc.simulate_batch,
             "sample_gaussian": vc.sample_gaussian,
             "attention": at.attention,
             "dynamic_shift_sum": dc.dynamic_shift_sum,
             "dynamic_shift_sum_backward": dc.dynamic_shift_sum_backward,
-            "simulate_interleave": si.simulate_interleave}
+            "simulate_interleave": si.simulate_interleave,
+            "upsample2x_bilinear": up.upsample2x_bilinear,
+            "upsample2x_bilinear_backward": up.upsample2x_bilinear_backward}
 
 
 def _zero_launches() -> None:
@@ -886,6 +906,23 @@ def _zero_launches() -> None:
 
 def _read_launches() -> dict:
     return {name: fn.launches for name, fn in _kernels().items()}
+
+
+def _upsample_decoders(model) -> int:
+    """The model's x2 upsample decoders (UpsampleConvLayer, HyperE2VID's
+    DynamicUpsampleLayer): each launches the upsample kernel once a frame
+    in eval and once a train step (the split forward runs the UNet's tail
+    once over B*T), its gradient once a train step."""
+    from v2v_tpu_torch.models.hyper import DynamicUpsampleLayer
+    from v2v_tpu_torch.models.submodules import UpsampleConvLayer
+    return sum(isinstance(m, (UpsampleConvLayer, DynamicUpsampleLayer))
+               for m in model.modules())
+
+
+def _require_launches(tag: str, launches: dict, **want) -> None:
+    """Each kernel in `want` launched that many times, every other none."""
+    full = dict(dict.fromkeys(launches, 0), **want)
+    _require(launches == full, f"{tag}: launches {launches}, want {full}")
 
 
 def _tf32(torch, on: bool):
@@ -899,10 +936,10 @@ def phase_build() -> dict:
     library already built gives the ptxas report kept beside it)."""
     from concurrent.futures import ThreadPoolExecutor
     from v2v_tpu_torch.ops import (attention, dynconv, sim_interleave,
-                                   voxel_cuda)
+                                   upsample, voxel_cuda)
     from v2v_tpu_torch.ops._sass import ptxas_summary
     libs = (voxel_cuda.LIB, attention.LIB, dynconv.LIB, dynconv.LIB_BWD,
-            sim_interleave.LIB)
+            sim_interleave.LIB, upsample.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
         infos = list(pool.map(lambda lib: lib.build(), libs))
     for lib, info in zip(libs, infos):
@@ -1563,6 +1600,128 @@ def phase_k4_backward(torch, dev, seed):
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "back_to_back_ms": b2b_ms}
+
+
+def phase_upsample(torch, dev, seed):
+    """[upsample]: the x2 upsample's kernels (csrc/upsample.cu) against
+    ATen's on the same card tensors at UP_SHAPES. The forward equal to
+    F.interpolate's, or within one unit in the last place of the output
+    type at ATen's value, in ATen's layout; the gather backward within one
+    unit of the output type of ATen's float64 gradient on the card, plus
+    float32's rounding of its 16 terms (2^-20 of sum w|g|), and no farther
+    from it than ATen's own backward; each equal bits over two calls, one
+    launch counted a call. Timed a call and back to back beside ATen's
+    kernels and the bytes bound (the input read once, the output written
+    once); back to back no slower than ATen at each NCHW shape. Returns
+    the forward's and the backward's records, their times summed over the
+    flagship's three shapes (a train step's calls)."""
+    from v2v_tpu_torch.ops import upsample as up
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    rows = []
+    for path, shape, dtype, last in UP_SHAPES:
+        dt = getattr(torch, dtype)
+        fmt = torch.channels_last if last else torch.contiguous_format
+        fi = torch.finfo(dt)
+        n, c, h, w = shape
+        x = torch.randn(shape, generator=gen, device=dev).to(
+            dt, memory_format=fmt)
+        gy = torch.randn((n, c, 2 * h, 2 * w), generator=gen,
+                         device=dev).to(dt, memory_format=fmt)
+        tag = f"upsample {path} {shape} {dtype}" + (" channels-last"
+                                                     if last else "")
+        _zero_launches()
+        got = up.upsample2x_bilinear_forward(x)
+        same = torch.equal(got, up.upsample2x_bilinear_forward(x))
+        want = up.upsample2x_bilinear_plain(x)
+        _require(got.dtype == dt and got.stride() == want.stride(),
+                 f"{tag}: forward {got.dtype} strides {got.stride()}, ATen "
+                 f"{want.stride()}")
+        unequal = int((got != want).sum())
+        # the gap in units of the output type, in a type that holds it
+        wide = torch.float64 if dt == torch.float32 else torch.float32
+        ulps = float(((got.to(wide) - want.to(wide)).abs() / (
+            fi.eps * want.to(wide).abs().clamp(min=fi.tiny))).max())
+        del got, want
+        gx = up.upsample2x_bilinear_backward(gy)
+        same = same and torch.equal(gx, up.upsample2x_bilinear_backward(gy))
+        aten = up.upsample2x_bilinear_backward_plain(gy)
+        _require(gx.dtype == dt and gx.stride() == aten.stride(),
+                 f"{tag}: backward {gx.dtype} strides {gx.stride()}, ATen "
+                 f"{aten.stride()}")
+        g64 = gy.double()
+        ref = up.upsample2x_bilinear_backward_plain(g64)
+        scale = up.upsample2x_bilinear_backward_plain(g64.abs())
+        del g64
+        room = fi.eps * ref.abs().clamp(min=fi.tiny) + 2.0 ** -20 * scale
+        err = (gx.double() - ref).abs()
+        over = float((err / room).max())
+        err_max = float(err.max())
+        aten_max = float((aten.double() - ref).abs().max())
+        del gx, aten, ref, scale, room, err
+        _require_launches(tag, _read_launches(), upsample2x_bilinear=2,
+                          upsample2x_bilinear_backward=2)
+        fwd = lambda: up.upsample2x_bilinear_forward(x)
+        bwd = lambda: up.upsample2x_bilinear_backward(gy)
+        row = {"path": path, "shape": list(shape), "dtype": dtype,
+               "channels_last": last, "unequal": unequal, "max_ulps": ulps,
+               "bwd_err_over_room": over, "bwd_max_err": err_max,
+               "aten_bwd_max_err": aten_max,
+               "fwd_ms": _cuda_ms(fwd, 20),
+               "fwd_b2b_ms": _cuda_ms_back_to_back(fwd, 20),
+               "aten_fwd_b2b_ms": _cuda_ms_back_to_back(
+                   lambda: up.upsample2x_bilinear_plain(x), 10),
+               "bwd_ms": _cuda_ms(bwd, 20),
+               "bwd_b2b_ms": _cuda_ms_back_to_back(bwd, 20),
+               "aten_bwd_b2b_ms": _cuda_ms_back_to_back(
+                   lambda: up.upsample2x_bilinear_backward_plain(gy), 10)}
+        nbytes = 5 * x.numel() * x.element_size()
+        row["bound_ms"], _ = _bound(nbytes, 0)
+        rows.append(row)
+        _log(f"[{tag}]: forward {unequal} elements differ from ATen's, at "
+             f"most {ulps:.3g} ulp; backward at most {over:.3f} of its room "
+             f"(max|err| {err_max:.3e}, ATen's {aten_max:.3e}); two calls "
+             f"equal bits: {same}; forward {row['fwd_ms']:.4f} ms a call, "
+             f"{row['fwd_b2b_ms']:.4f} back to back (ATen "
+             f"{row['aten_fwd_b2b_ms']:.4f}), backward {row['bwd_ms']:.4f}, "
+             f"{row['bwd_b2b_ms']:.4f} (ATen {row['aten_bwd_b2b_ms']:.4f}); "
+             f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB): "
+             f"{row['bound_ms'] / row['fwd_b2b_ms']:.1%} and "
+             f"{row['bound_ms'] / row['bwd_b2b_ms']:.1%} of it back to back")
+        _require(same, f"{tag}: two calls of a kernel differ")
+        _require(ulps <= 1.0, f"{tag}: the forward is {ulps:.3g} ulp from "
+                              f"ATen's")
+        _require(over <= 1.0 and err_max <= aten_max,
+                 f"{tag}: the backward's error {err_max:.3e} is beyond its "
+                 f"room or ATen's {aten_max:.3e}")
+        _require(last or (row["fwd_b2b_ms"] <= row["aten_fwd_b2b_ms"]
+                          and row["bwd_b2b_ms"] <= row["aten_bwd_b2b_ms"]),
+                 f"{tag}: slower than ATen back to back")
+        del x, gy
+        torch.cuda.empty_cache()
+    step = [r for r in rows if r["path"] == "flagship"]
+    total = lambda k: sum(r[k] for r in step)
+    common = {"route": "cuda", "source": "v2v_tpu_torch/csrc/upsample.cu",
+              "replaces": "no TPU kernel (the JAX package's "
+                          "jax.image.resize); ATen's upsample_bilinear2d on "
+                          "the card",
+              "bound_ms": total("bound_ms"), "bound_by": "bytes",
+              "library_ms": None, "rows": rows}
+    records = [dict(common, name="upsample2x_bilinear",
+                    max_ulps=max(r["max_ulps"] for r in rows),
+                    ms=total("fwd_ms"), back_to_back_ms=total("fwd_b2b_ms"),
+                    plain_ms=total("aten_fwd_b2b_ms")),
+               dict(common, name="upsample2x_bilinear_backward",
+                    max_err_over_room=max(r["bwd_err_over_room"]
+                                          for r in rows),
+                    ms=total("bwd_ms"), back_to_back_ms=total("bwd_b2b_ms"),
+                    plain_ms=total("aten_bwd_b2b_ms"))]
+    for rec, way in zip(records, ("forward", "backward")):
+        _log(f"[upsample] {way} over the flagship's three shapes (a train "
+             f"step): {rec['ms']:.4f} ms a call, {rec['back_to_back_ms']:.4f} "
+             f"back to back, ATen {rec['plain_ms']:.4f}; bound "
+             f"{rec['bound_ms']:.4f} ms, "
+             f"{rec['bound_ms'] / rec['back_to_back_ms']:.1%} of it")
+    return records
 
 
 def _tiny_module(l0: int, module=None):
@@ -2467,13 +2626,10 @@ def phase_eval(torch, dev, seed, profile=False, config=None,
     launches = _read_launches()
     n_frames = 2 * EVAL_FRAMES
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if kernel is None:
-        _require(not any(launches.values()),
-                 f"{tag}: kernels launched {launches}")
-    else:
-        _require(launches[kernel] == per_frame * n_frames,
-                 f"{tag}: {kernel} launched {launches[kernel]} times in "
-                 f"{n_frames} frames")
+    want = {"upsample2x_bilinear": _upsample_decoders(model) * n_frames}
+    if kernel is not None:
+        want[kernel] = per_frame * n_frames
+    _require_launches(f"{tag} ({n_frames} frames)", launches, **want)
     _require(len(outs) == n_frames, f"{tag}: {len(outs)} model steps")
     if flows:
         want = (1, 2) + EVAL_HW
@@ -2576,14 +2732,15 @@ def phase_nernet_reference(torch, dev, seed):
          f"voxel {verr:.3e} (tolerance {NERNET_VOXEL_ATOL}; |voxel| up to "
          f"{float(vxh.abs().max()):.3f}); scatter_rows on the same keys and "
          f"rows equal on card and CPU: {same}; launches on the card "
-         f"{sum(lc.values())}")
+         f"{ {k: v for k, v in lc.items() if v} }")
     _require(bool(torch.isfinite(pc).all()), f"{tag}: non-finite")
     _require(float(vxh.abs().max()) > 0, f"{tag}: an empty voxel")
     _require(err <= EVAL_REF_ATOL, f"{tag}: card and CPU differ")
     _require(verr <= NERNET_VOXEL_ATOL, f"{tag}: the voxels differ")
     _require(same, f"{tag}: the scatter's bits differ between card and CPU")
-    _require(not any(lc.values()) and not any(lh.values()),
-             f"{tag}: kernels launched {lc}")
+    _require_launches(f"{tag} (card)", lc, upsample2x_bilinear=(
+        _upsample_decoders(iface.model) * frames * len(seqs)))
+    _require_launches(f"{tag} (CPU)", lh)
     _tf32(torch, True)
 
 
@@ -2659,8 +2816,9 @@ def phase_nernet_eval(torch, dev, seed, profile=False):
     launches = _read_launches()
     n_frames = 2 * EVAL_FRAMES
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    _require(not any(launches.values()), f"{tag}: kernels launched "
-                                         f"{launches}")
+    _require_launches(f"{tag} ({n_frames} frames)", launches,
+                      upsample2x_bilinear=_upsample_decoders(model)
+                      * n_frames)
     _require(len(outs) == n_frames, f"{tag}: {len(outs)} model steps")
     _require(all(o.shape == (1, 1) + EVAL_HW for o in outs),
              f"{tag}: prediction shapes {outs[0].shape}")
@@ -3348,8 +3506,10 @@ def phase_webvid_voxel(torch, dev, seed, steps):
                  and math.isfinite(float(aux["grad_norm"])),
                  f"{tag}: loss {losses[-1]}")
     launches = _read_launches()
-    _require(not any(launches.values()), f"{tag}: kernels launched "
-                                         f"{launches}")
+    ups = _upsample_decoders(iface.model) * steps
+    _require_launches(f"{tag} ({steps} steps)", launches,
+                      upsample2x_bilinear=ups,
+                      upsample2x_bilinear_backward=ups)
     _log(f"[{tag}] {b} clips of {clips[0]['video'].shape[0]} frames at "
          f"{hw}x{hw} through VoxelOutput: {statistics.median(host_ms):.1f} "
          f"host ms a clip (median; {sum(host_ms) / 1e3:.2f} s for the "
@@ -3443,8 +3603,9 @@ def phase_legacy_data(torch, dev, seed):
              f"{tag}: prediction {tuple(preds[0].shape)}")
     _require(torch.equal(*preds), f"{tag}: two runs from a reset state "
                                   f"differ")
-    _require(not any(launches.values()), f"{tag}: kernels launched "
-                                         f"{launches}")
+    _require_launches(f"{tag} (2 x 40 frames)", launches,
+                      upsample2x_bilinear=_upsample_decoders(iface.model)
+                      * 2 * preds[0].shape[1])
     _log(f"[{tag}] one between_frames window (1, 40, 128, 128, 5) through "
          f"the flagship E2VID's eval step: finite, equal from a reset "
          f"state twice; launches {launches}")
@@ -3953,6 +4114,7 @@ def main(argv=None) -> int:
         k3 = phase_k3(torch, dev, args.seed, builds["attention.cu"])
         k4 = phase_k4(torch, dev, args.seed)
         k4_bwd = phase_k4_backward(torch, dev, args.seed)
+        ups = phase_upsample(torch, dev, args.seed)
         phase_reference(torch, dev, args.seed)
         paths = {}
         paths["slice"], slice_ms = phase_slice(torch, dev, args.seed,
@@ -4041,7 +4203,7 @@ def main(argv=None) -> int:
         return 1
     # launches of each kernel on the main paths, each counted from 0 just
     # before its path ran
-    kernels = [k1, k2, k3, k4, k4_bwd, k5]
+    kernels = [k1, k2, k3, k4, k4_bwd, k5] + ups
     for rec in kernels:
         by_path = {p: n[rec["name"]] for p, n in paths.items()
                    if n[rec["name"]]}

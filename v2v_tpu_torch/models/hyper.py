@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dynconv import dynamic_shift_sum
+from ..ops.upsample import upsample2x_bilinear
 from .submodules import LSTMState, TorchBatchNorm
 from .unet import UNetConfig, UNetRecurrent, _encoder_states
 
@@ -146,8 +147,7 @@ class DynamicUpsampleLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, ev: torch.Tensor,
                 prev_recs: torch.Tensor) -> torch.Tensor:
-        x_up = F.interpolate(x, scale_factor=2, mode="bilinear",
-                             align_corners=False)
+        x_up = upsample2x_bilinear(x)
         atoms = self.dynamic_atom_generation(self.context_fusion(ev,
                                                                  prev_recs))
         return torch.relu(self.dynamic_conv(x_up, atoms))

@@ -19,9 +19,9 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.upsample import upsample2x_bilinear
 from ..parallel import mesh
 
 LSTMState = Tuple[torch.Tensor, torch.Tensor]   # (hidden, cell), NCHW
@@ -186,8 +186,8 @@ class ConvLayer(_ConvNormAct):
 
 
 class UpsampleConvLayer(_ConvNormAct):
-    """Bilinear x2 upsample (align_corners=False) then conv [+ BN/IN]
-    (model/submodules.py:68-96)."""
+    """Bilinear x2 upsample (align_corners=False; ops/upsample.py's kernel
+    pair on the card) then conv [+ BN/IN] (model/submodules.py:68-96)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, activation: Optional[str] = "relu",
@@ -200,9 +200,7 @@ class UpsampleConvLayer(_ConvNormAct):
         self.activation = activation_fn(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.interpolate(x, scale_factor=2, mode="bilinear",
-                          align_corners=False)
-        return self._finish(self.conv2d(x))
+        return self._finish(self.conv2d(upsample2x_bilinear(x)))
 
 
 class TransposedConvLayer(_ConvNormAct):

@@ -23,10 +23,10 @@ with each top entry's measured rate and, for the tail, the rate of a
 calibration counts at the calibration (the JAX script's leak guard), an
 unresolved one (no time measured) at it too. The step cannot run
 faster than its own matmuls and convolutions run alone, so
-gap = measured ms/step / T_floor. A booked resize replays as the port
-runs it, ATen's bilinear upsample, which is no matmul: its FLOPs are the
-JAX counter's, its time ATen's, so the floor shows what the upsample
-costs.
+gap = measured ms/step / T_floor. A booked resize replays as ATen's
+bilinear upsample, which is no matmul: its FLOPs are the JAX counter's,
+its time ATen's. On the card the step's x2 upsamples run the port's
+kernel pair (ops/upsample.py), so none is recorded there.
 
 FlopCounterMode cannot see the port's ctypes kernels: K3 (attention),
 K4 (dynamic_shift_sum) and its gradient. Their bound x launches in the

@@ -27,8 +27,10 @@ the count. K1 (simulate_batch) and K2 do no matmul or convolution, so
 nothing is missing for them; K3 (attention, ETNet above 4,096 tokens)
 leaves out its two matmuls, 4 x B x heads x Nq x Nk x 32; K4
 (dynamic_shift_sum, HyperE2VID) leaves out its 25-offset, M-atom
-contraction, 2 x B x H x W x CO x M x 25, and its gradient twice that.
-On the CPU every wrapper runs its plain version, whose matmuls count.
+contraction, 2 x B x H x W x CO x M x 25, and its gradient twice that;
+the bilinear x2 upsample (ops/upsample.py, every upsample decoder) leaves
+out the resize and its gradient as `_resize_flop` books them. On the CPU
+every wrapper runs its plain version, whose matmuls and resizes count.
 
     flops = count_flops(model, x)                 # runs model(x) once
     hist = count_flops_by_shape(model, x)         # {op signature: flops}
